@@ -1,0 +1,1 @@
+"""core of the PyTorch/CUDA port (counterpart of bufferx_tpu.core)."""

@@ -1,0 +1,51 @@
+"""SE(3) helpers and registration error metrics (float32, batched-first).
+
+Counterpart of :mod:`bufferx_tpu.core.se3` for the ported path: every
+function broadcasts over leading axes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["integrate", "compute_rte", "compute_rre", "rotation_z"]
+
+
+def integrate(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R [..., 3, 3], t [..., 3]) -> [..., 4, 4]."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def compute_rte(trans_est: torch.Tensor, trans_gt: torch.Tensor) -> torch.Tensor:
+    """Relative translation error: L2 of the translation difference."""
+    return torch.linalg.norm(trans_est[..., :3, 3] - trans_gt[..., :3, 3],
+                             dim=-1)
+
+
+def compute_rre(trans_est: torch.Tensor, trans_gt: torch.Tensor) -> torch.Tensor:
+    """Relative rotation error in degrees: arccos((tr(Re^T Rg) - 1) / 2)."""
+    tr = torch.sum(trans_est[..., :3, :3] * trans_gt[..., :3, :3],
+                   dim=(-2, -1))
+    cos_theta = torch.clamp((tr - 1.0) / 2.0, -1.0 + 1e-16, 1.0 - 1e-16)
+    return torch.rad2deg(torch.arccos(cos_theta))
+
+
+def rotation_z(angle: torch.Tensor) -> torch.Tensor:
+    """Rotation about +z by ``angle`` (radians); broadcasts over leading axes."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    z = torch.zeros_like(c)
+    o = torch.ones_like(c)
+    return torch.stack(
+        [
+            torch.stack([c, -s, z], dim=-1),
+            torch.stack([s, c, z], dim=-1),
+            torch.stack([z, z, o], dim=-1),
+        ],
+        dim=-2,
+    )

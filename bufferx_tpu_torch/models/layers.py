@@ -1,0 +1,132 @@
+"""Cylindrical padding and conv stacks (channels-first, cuDNN convs).
+
+Counterpart of :mod:`bufferx_tpu.models.layers`. The azimuth axis is
+periodic: convolutions wrap it and zero-pad elevation. The JAX package is
+channel-last; the port keeps PyTorch's channels-first layout inside
+(``[K, C, ele, azi]`` and ``[K, C, rad, ele, azi]``) and converts kernels
+once when loading (``tools/weights.py``).
+
+:class:`ConvBNRelu` reproduces the JAX layer's rounding in bf16 serving
+mode: the conv and its bias add run in the compute dtype, BatchNorm (from
+running statistics, eps 1e-5) runs in float32 on that result and rounds
+back to the compute dtype, and the output is float32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["pad_cyl_2d", "pad_cyl_3d", "ConvBNRelu", "CylindricalConvNet",
+           "batch_norm"]
+
+BN_EPS = 1e-5
+
+
+def _wrap_last(x: torch.Tensor, p: int) -> torch.Tensor:
+    return torch.cat([x[..., -p:], x, x[..., :p]], dim=-1)
+
+
+def pad_cyl_2d(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x [K, C, ele, azi]: wrap azimuth, zero-pad elevation for odd k."""
+    p = (k - 1) // 2
+    if p == 0:
+        return x
+    return F.pad(_wrap_last(x, p), (0, 0, p, p))
+
+
+def pad_cyl_3d(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x [K, C, rad, ele, azi]: wrap azimuth + zero elevation; the radial
+    axis stays unpadded (the first conv collapses rad 3 -> 1)."""
+    p = (k - 1) // 2
+    if p == 0:
+        return x
+    return F.pad(_wrap_last(x, p), (0, 0, p, p, 0, 0))
+
+
+def batch_norm(x: torch.Tensor, mean, var, scale=None, bias=None,
+               channel_dim: int = 1) -> torch.Tensor:
+    """Inference BatchNorm in float32, flax's order of operations."""
+    shape = [1] * x.ndim
+    shape[channel_dim] = -1
+    mul = torch.rsqrt(var + BN_EPS)
+    if scale is not None:
+        mul = mul * scale
+    y = (x.to(torch.float32) - mean.view(shape)) * mul.view(shape)
+    if bias is not None:
+        y = y + bias.view(shape)
+    return y
+
+
+class ConvBNRelu(nn.Module):
+    """VALID conv + optional inference BatchNorm + optional ReLU.
+
+    ``weight`` is [out, in, *kernel]; BatchNorm keeps its running
+    statistics in the buffers ``bn_mean``/``bn_var`` and, when affine,
+    ``bn_scale``/``bn_bias``."""
+
+    def __init__(self, in_features: int, features: int, kernel: Sequence[int],
+                 use_bn: bool = True, use_relu: bool = True,
+                 bn_affine: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kernel = tuple(kernel)
+        self.use_bn = use_bn
+        self.use_relu = use_relu
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.zeros(features, in_features, *kernel))
+        self.bias = nn.Parameter(torch.zeros(features))
+        if use_bn:
+            self.register_buffer("bn_mean", torch.zeros(features))
+            self.register_buffer("bn_var", torch.ones(features))
+            if bn_affine:
+                self.bn_scale = nn.Parameter(torch.ones(features))
+                self.bn_bias = nn.Parameter(torch.zeros(features))
+        self.bn_affine = bn_affine
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        conv = F.conv2d if len(self.kernel) == 2 else F.conv3d
+        y = conv(x.to(dt), self.weight.to(dt))
+        y = y + self.bias.to(dt).view((1, -1) + (1,) * len(self.kernel))
+        if self.use_bn:
+            y = batch_norm(
+                y, self.bn_mean, self.bn_var,
+                self.bn_scale if self.bn_affine else None,
+                self.bn_bias if self.bn_affine else None,
+            ).to(dt)
+        y = y.to(torch.float32)
+        return torch.relu(y) if self.use_relu else y
+
+
+class CylindricalConvNet(nn.Module):
+    """Descriptor backbone: one 3x3x3 conv collapsing the radial axis, then
+    seven 3x3 cylindrical convs (affine-free BN), a bare last conv.
+
+    Input [K, 16, rad=3, ele, azi] -> output [K, dim, ele, azi] f32."""
+
+    def __init__(self, dim: int = 32, width: float = 1.0,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+
+        def w(c):
+            return max(int(round(c * width)), 8)
+
+        chans = [16, w(64), w(64), w(128), w(128), w(64), w(64), w(32)]
+        layers = [ConvBNRelu(16, chans[1], (3, 3, 3),
+                             compute_dtype=compute_dtype)]
+        for cin, cout in zip(chans[1:-1], chans[2:]):
+            layers.append(ConvBNRelu(cin, cout, (3, 3),
+                                     compute_dtype=compute_dtype))
+        layers.append(ConvBNRelu(chans[-1], dim, (3, 3), use_bn=False,
+                                 use_relu=False, compute_dtype=compute_dtype))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.layers[0](pad_cyl_3d(x, 3))[:, :, 0]     # rad 3 -> 1
+        for layer in self.layers[1:]:
+            x = layer(pad_cyl_2d(x, 3))
+        return x

@@ -1,0 +1,1 @@
+"""tools of the PyTorch/CUDA port (counterpart of bufferx_tpu.tools)."""

@@ -1,0 +1,135 @@
+"""Port parity: MiniSpinNet (moments, gated) and CostVolume, layer by layer,
+with the shipped ``hard_moments_r4ft2`` checkpoint, in float32 and bf16.
+
+Tolerances, against the layer's largest magnitude (at least 1): float32
+layers to 1e-5 (convolutions sum in another order in XLA and in PyTorch;
+measured <= 1.1e-6); bf16 layers to 3e-2 (a bf16 rounding flip, 2^-8
+relative, moves an activation by one bf16 step that later layers carry;
+measured <= 1.1e-2). Outputs: desc/equi to 1e-5 in f32 and 5e-3/2e-2 in
+bf16 (measured 5.6e-4/3.4e-3); the rotation index to 1e-4 bins in f32 and
+0.05 bins (0.9 degrees) in bf16 (measured 8.8e-3).
+"""
+
+import os
+
+import flax.serialization
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bufferx_tpu.models.heads import CostVolume as JaxCostVolume
+from bufferx_tpu.models.spinnet import MiniSpinNet as JaxMiniSpinNet
+from bufferx_tpu_torch.models.heads import CostVolume
+from bufferx_tpu_torch.models.spinnet import MiniSpinNet
+from bufferx_tpu_torch.tools.weights import load_snapshot
+
+SNAP = os.path.join(os.path.dirname(__file__), "..", "snapshot",
+                    "hard_moments_r4ft2")
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+LAYER_TOL = {"f32": 1e-5, "bf16": 3e-2}
+
+
+@pytest.fixture(scope="module")
+def weights():
+    def restore(stage):
+        with open(os.path.join(SNAP, stage, "best.msgpack"), "rb") as f:
+            tree = flax.serialization.msgpack_restore(f.read())
+        return jax.tree.map(jnp.asarray, tree)
+
+    return {"desc": restore("Desc"), "pose": restore("Pose"),
+            "torch": load_snapshot(SNAP)}
+
+
+def _hook_outputs(modules: dict) -> dict:
+    got = {}
+    for name, mod in modules.items():
+        mod.register_forward_hook(
+            lambda _m, _i, out, name=name: got.__setitem__(name, out)
+        )
+    return got
+
+
+def _close(jax_out, torch_out, tol, what):
+    ref = np.asarray(jax_out, dtype=np.float32)
+    got = torch_out.detach().float().numpy()
+    assert ref.shape == got.shape, (what, ref.shape, got.shape)
+    scale = max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(ref - got).max())
+    assert err <= tol * scale, f"{what}: max err {err} > {tol} x {scale}"
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_minispinnet_layerwise(weights, dt):
+    jdt, tdt = DTYPES[dt]
+    rs = np.random.RandomState(0)
+    x = (rs.randn(6, 10, 420) * 0.5).astype(np.float32)
+    jm = JaxMiniSpinNet(mode="moments", pool="gated", compute_dtype=jdt)
+    out, inter = jm.apply(weights["desc"], jnp.asarray(x), train=False,
+                          capture_intermediates=True)
+    inter = inter["intermediates"]
+    tm = MiniSpinNet(compute_dtype=tdt)
+    tm.load_state_dict(weights["torch"]["desc"], strict=True)
+    hooked = {"stem": tm.stem, "att_hidden": tm.att_hidden,
+              "att_gate": tm.att_gate}
+    hooked.update({f"backbone.{i}": layer
+                   for i, layer in enumerate(tm.backbone.layers)})
+    got = _hook_outputs(hooked)
+    with torch.no_grad():
+        o = tm(torch.from_numpy(x))
+
+    tol = LAYER_TOL[dt]
+    _close(inter["ConvBNRelu_0"]["__call__"][0], got["stem"], tol, "stem")
+    for i in range(8):
+        ref = inter["CylindricalConvNet_0"][f"ConvBNRelu_{i}"]["__call__"][0]
+        _close(ref, torch.movedim(got[f"backbone.{i}"], 1, -1), tol,
+               f"backbone layer {i}")
+    for jname, tname in (("ConvBNRelu_1", "att_hidden"),
+                         ("ConvBNRelu_2", "att_gate")):
+        _close(inter[jname]["__call__"][0], torch.movedim(got[tname], 1, -1),
+               tol, tname)
+    desc_tol, equi_tol = (1e-5, 1e-5) if dt == "f32" else (5e-3, 2e-2)
+    _close(out["desc"], o["desc"], desc_tol, "desc")
+    _close(out["equi"], o["equi"], equi_tol, "equi")
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cost_volume_layerwise(weights, dt):
+    jdt, tdt = DTYPES[dt]
+    rs = np.random.RandomState(1)
+
+    def unit_maps():
+        d = rs.randn(5, 32, 5, 20).astype(np.float32)
+        return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    d1, d2 = unit_maps(), unit_maps()
+    jc = JaxCostVolume(azi_n=20, compute_dtype=jdt)
+    ind, inter = jc.apply(weights["pose"], jnp.asarray(d1), jnp.asarray(d2),
+                          train=False, capture_intermediates=True)
+    inter = inter["intermediates"]
+    tc = CostVolume(compute_dtype=tdt)
+    tc.load_state_dict(weights["torch"]["pose"], strict=True)
+    hooked = {"stem": tc.stem}
+    hooked.update({f"layer.{i}": layer for i, layer in enumerate(tc.layers)})
+    got = _hook_outputs(hooked)
+    with torch.no_grad():
+        t_ind = tc(torch.from_numpy(d1), torch.from_numpy(d2))
+
+    tol = LAYER_TOL[dt]
+    _close(inter["ConvBNRelu_0"]["__call__"][0],
+           torch.movedim(got["stem"], 1, -1), tol, "stem")
+    for i in range(9):
+        _close(inter[f"ConvBNRelu_{i + 1}"]["__call__"][0],
+               torch.movedim(got[f"layer.{i}"], 1, -1), tol, f"layer {i}")
+    ind_tol = 1e-4 if dt == "f32" else 0.05
+    err = float(np.abs(np.asarray(ind) - t_ind.numpy()).max())
+    assert err <= ind_tol, f"rotation index off by {err} bins"
+
+
+def test_minispinnet_rejects_unported_modes():
+    with pytest.raises(NotImplementedError):
+        MiniSpinNet(mode="sampled")
+    with pytest.raises(NotImplementedError):
+        MiniSpinNet(pool="softmax")
