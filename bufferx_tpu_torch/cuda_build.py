@@ -136,7 +136,11 @@ def build_all() -> float:
     per source, all started together. Returns the wall seconds taken."""
     # importing the kernel modules registers their kernels
     from bufferx_tpu_torch.geometry import spt_pallas  # noqa: F401
-    from bufferx_tpu_torch.kernels import fps, strat_pallas  # noqa: F401
+    from bufferx_tpu_torch.kernels import (  # noqa: F401
+        conv_pallas,
+        fps,
+        strat_pallas,
+    )
 
     t0 = time.perf_counter()
     kernels = list(KERNELS.values())

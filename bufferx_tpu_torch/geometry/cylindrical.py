@@ -1,15 +1,24 @@
-"""Cylindrical grid geometry (the port's own copy of the grid centres).
+"""Cylindrical grid geometry: grid centres and the spatial point transformer.
 
-Counterpart of :func:`bufferx_tpu.geometry.cylindrical.grid_cell_centers`.
-Cells are indexed ``[rad, ele, azi]`` and flattened C-order to
-``G = rad_n * ele_n * azi_n``.
+Counterpart of :mod:`bufferx_tpu.geometry.cylindrical`. Cells are indexed
+``[rad, ele, azi]`` and flattened C-order to ``G = rad_n * ele_n * azi_n``.
+:func:`spatial_point_transformer` is the reference "sampled" descriptor's
+input: per cell, the first ``nsample`` in-radius points of each patch in row
+order (kernel K4 on the card, its plain version on the CPU), derotated per
+azimuth column by :func:`var_to_invar`.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import math
 
-__all__ = ["grid_cell_centers"]
+import numpy as np
+import torch
+
+from bufferx_tpu_torch.core.se3 import rotation_z
+from bufferx_tpu_torch.geometry.spt_pallas import spt_cell_query
+
+__all__ = ["grid_cell_centers", "spatial_point_transformer", "var_to_invar"]
 
 
 def grid_cell_centers(rad_n: int, ele_n: int, azi_n: int) -> np.ndarray:
@@ -24,3 +33,30 @@ def grid_cell_centers(rad_n: int, ele_n: int, azi_n: int) -> np.ndarray:
     on_sphere = np.stack([st * cp, st * sp, ct], axis=-1).reshape(-1, 3)
     shells = (np.arange(rad_n) / rad_n + 1.0 / (2 * rad_n)).reshape(rad_n, 1, 1)
     return (shells * on_sphere[None]).reshape(-1, 3).astype(np.float32)
+
+
+def spatial_point_transformer(patches: torch.Tensor, patches_mask: torch.Tensor,
+                              rad_n: int, ele_n: int, azi_n: int,
+                              delta: float, nsample: int) -> torch.Tensor:
+    """SPT: the first ``nsample`` valid points of each normalized patch
+    [K, P, 3] within ``delta / rad_n`` of each cell centre, in row order
+    (rows arrive shuffled, so this is a uniform random subset), zero-filled,
+    then derotated: [K, G, nsample, 3]."""
+    cells = torch.as_tensor(grid_cell_centers(rad_n, ele_n, azi_n),
+                            device=patches.device)
+    out = spt_cell_query(patches, patches_mask, cells, delta / rad_n, nsample)
+    return var_to_invar(out, rad_n, ele_n, azi_n)
+
+
+def var_to_invar(pts: torch.Tensor, rad_n: int, ele_n: int,
+                 azi_n: int) -> torch.Tensor:
+    """Rotate the points of the cells at azimuth bin ``a`` by
+    R_z(-a * 2 pi / azi_n), so every column shares one frame.
+    pts [K, G, ns, 3] -> [K, G, ns, 3]."""
+    k, g, ns, _ = pts.shape
+    angles = (-2.0 * math.pi / azi_n) * torch.arange(
+        azi_n, dtype=pts.dtype, device=pts.device)
+    R = rotation_z(angles)                                     # [azi, 3, 3]
+    out = torch.einsum("kreasd,acd->kreasc",
+                       pts.reshape(k, rad_n, ele_n, azi_n, ns, 3), R)
+    return out.reshape(k, g, ns, 3)

@@ -20,8 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bufferx_tpu_torch.kernels.conv_pallas import cyl_conv_stack, fold_cyl_stack
+
 __all__ = ["pad_cyl_2d", "pad_cyl_3d", "ConvBNRelu", "CylindricalConvNet",
-           "batch_norm"]
+           "FusedCylindricalConvNet", "batch_norm"]
 
 BN_EPS = 1e-5
 
@@ -130,3 +132,50 @@ class CylindricalConvNet(nn.Module):
         for layer in self.layers[1:]:
             x = layer(pad_cyl_2d(x, 3))
         return x
+
+
+class FusedCylindricalConvNet(CylindricalConvNet):
+    """Inference form of :class:`CylindricalConvNet` as ONE fused program
+    (kernel K5, ``kernels/conv_pallas.py``), BatchNorm folded into the
+    weights. Counterpart of :class:`bufferx_tpu.models.layers.
+    FusedCylindricalConvNet`.
+
+    Parameter and buffer names are those of the bf16 ``CylindricalConvNet``,
+    so the same state dicts load with ``strict=True``. The fold runs once,
+    when the module is built and after every ``load_state_dict``, into the
+    non-persistent buffers ``folded_w`` [5328, 128] bf16 and ``folded_b``
+    [8, 128] f32; parameters edited in place afterwards need
+    :meth:`refold`. Serving only: the forward raises in training mode, as
+    the JAX module asserts ``not train``, so call ``.eval()`` first. Fixed
+    geometry: rad 3, ele 7, azi 20, 16 stem channels, width 1, dim 32.
+
+    Input [K, 16, 3, 7, 20] -> output [K, 32, 7, 20] f32, the layouts of
+    :class:`CylindricalConvNet`; both are views of the kernel's
+    channels-last tensors, so a channels-last caller pays no copy.
+    """
+
+    def __init__(self, dim: int = 32):
+        if dim != 32:
+            raise ValueError(f"the fused conv stack's last layer is fixed at "
+                             f"32 channels, got dim={dim}")
+        super().__init__(dim, 1.0, torch.bfloat16)
+        self.register_buffer("folded_w", torch.empty(0), persistent=False)
+        self.register_buffer("folded_b", torch.empty(0), persistent=False)
+        self.refold()
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module.refold())
+
+    @torch.no_grad()
+    def refold(self) -> None:
+        w, b = fold_cyl_stack(self.state_dict())
+        dev = self.layers[0].weight.device
+        self.folded_w = w.to(dev)
+        self.folded_b = b.to(dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise RuntimeError("FusedCylindricalConvNet is serving-only: "
+                               "call .eval() before the forward")
+        out = cyl_conv_stack(x.permute(0, 2, 3, 4, 1), self.folded_w,
+                             self.folded_b)                 # [K, 7, 20, 32]
+        return out.permute(0, 3, 1, 2)

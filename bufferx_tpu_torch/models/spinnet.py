@@ -1,11 +1,14 @@
-"""Mini-SpinNet patch embedder, "moments" mode with the gated pool.
+"""Mini-SpinNet patch embedder with the gated pool, "moments" or "sampled".
 
-Counterpart of :class:`bufferx_tpu.models.spinnet.MiniSpinNet`. Input is the
-moments-major cell features ``[K, 10, G]`` (G = rad_n * ele_n * azi_n);
-output is a dict with ``desc`` [K, 32] (unit invariant descriptors) and
-``equi`` [K, 32, ele_n, azi_n] (equivariant maps, unit over channels), the
-JAX package's layouts. The other modes ("sampled", the softmax pool, the
-fused conv stack) are not ported yet and raise.
+Counterpart of :class:`bufferx_tpu.models.spinnet.MiniSpinNet`. Input is
+the moments-major cell features ``[K, 10, G]`` (``mode="moments"``) or the
+SPT's derotated cell samples ``[K, G, ns, 3]`` (``mode="sampled"``, the
+reference descriptor: a point MLP with a max over the samples); G = rad_n *
+ele_n * azi_n. Output is a dict with ``desc`` [K, 32] (unit invariant
+descriptors) and ``equi`` [K, 32, ele_n, azi_n] (equivariant maps, unit over
+channels), the JAX package's layouts. ``fused_conv`` runs the backbone as
+the fused conv stack (kernel K5) under the JAX package's condition. The
+softmax pool is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from torch import nn
 from bufferx_tpu_torch.models.layers import (
     ConvBNRelu,
     CylindricalConvNet,
+    FusedCylindricalConvNet,
     batch_norm,
 )
 
@@ -28,51 +32,79 @@ def safe_unit(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tenso
     return v / torch.clamp_min(torch.linalg.norm(v, dim=dim, keepdim=True), eps)
 
 
-class MomentsMajorStem(ConvBNRelu):
-    """1x1 conv + affine BN + ReLU on moments-major input [K, 10, G],
-    returning channels-last [K, G, 16] (the contraction reads the moments
-    axis directly, as the JAX stem does)."""
+class PointwiseStem(ConvBNRelu):
+    """1x1 conv + affine BN + ReLU on channels-last input [..., C_in],
+    returning [..., 16] (the JAX ``ConvBNRelu(16, (1, 1), bn_affine=True)``
+    stem of the sampled mode)."""
 
-    def __init__(self, features: int = 16, in_features: int = 10,
+    def __init__(self, features: int = 16, in_features: int = 3,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(in_features, features, (1, 1), bn_affine=True,
                          compute_dtype=compute_dtype)
 
-    def forward(self, x_mm: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        w = self.weight[:, :, 0, 0].t().to(dt)                 # [10, 16]
-        y = torch.matmul(x_mm.to(dt).transpose(1, 2), w)       # [K, G, 16]
-        y = y + self.bias.to(dt)
+        w = self.weight[:, :, 0, 0].t().to(dt)                 # [C_in, 16]
+        y = torch.matmul(x.to(dt), w) + self.bias.to(dt)
         y = batch_norm(y, self.bn_mean, self.bn_var, self.bn_scale,
                        self.bn_bias, channel_dim=-1).to(dt)
         return torch.relu(y.to(torch.float32))
+
+
+class MomentsMajorStem(PointwiseStem):
+    """The stem on moments-major input [K, 10, G], returning channels-last
+    [K, G, 16] (the contraction reads the moments axis directly, as the JAX
+    stem does)."""
+
+    def __init__(self, features: int = 16, in_features: int = 10,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(features, in_features, compute_dtype)
+
+    def forward(self, x_mm: torch.Tensor) -> torch.Tensor:
+        return super().forward(x_mm.transpose(1, 2))
 
 
 class MiniSpinNet(nn.Module):
     def __init__(self, rad_n: int = 3, ele_n: int = 7, azi_n: int = 20,
                  dim: int = 32, mode: str = "moments", pool: str = "gated",
                  width: float = 1.0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 fused_conv: bool = False):
         super().__init__()
-        if mode != "moments" or pool != "gated":
+        if pool != "gated":
             raise NotImplementedError(
-                f"MiniSpinNet mode={mode!r} pool={pool!r}: only "
-                "mode='moments' with pool='gated' is ported"
-            )
+                f"MiniSpinNet pool={pool!r}: only pool='gated' is ported")
+        if mode not in ("moments", "sampled"):
+            raise ValueError(f"MiniSpinNet mode={mode!r}: expected 'moments' "
+                             "or 'sampled'")
+        self.mode = mode
         self.rad_n, self.ele_n, self.azi_n = rad_n, ele_n, azi_n
-        self.stem = MomentsMajorStem(16, compute_dtype=compute_dtype)
-        self.backbone = CylindricalConvNet(dim, width, compute_dtype)
+        stem = MomentsMajorStem if mode == "moments" else PointwiseStem
+        self.stem = stem(16, compute_dtype=compute_dtype)
+        # the JAX package's condition; the fused module is serving-only and
+        # raises in training mode
+        self.fused = (fused_conv and (rad_n, ele_n, azi_n) == (3, 7, 20)
+                      and compute_dtype == torch.bfloat16 and width == 1.0)
+        self.backbone = (FusedCylindricalConvNet(dim) if self.fused
+                         else CylindricalConvNet(dim, width, compute_dtype))
         self.att_hidden = ConvBNRelu(dim, 16, (1, 1), bn_affine=True,
                                      compute_dtype=compute_dtype)
         self.att_gate = ConvBNRelu(16, 1, (1, 1), bn_affine=True,
                                    compute_dtype=compute_dtype)
 
-    def forward(self, x_mm: torch.Tensor) -> dict:
-        k, c, g = x_mm.shape
-        if c != 10 or g != self.rad_n * self.ele_n * self.azi_n:
-            raise ValueError(f"expected moments-major [K, 10, G], got "
-                             f"{tuple(x_mm.shape)}")
-        x = self.stem(x_mm)                                    # [K, G, 16]
+    def forward(self, x_in: torch.Tensor) -> dict:
+        k = x_in.shape[0]
+        g = self.rad_n * self.ele_n * self.azi_n
+        if self.mode == "moments":
+            if tuple(x_in.shape[1:]) != (10, g):
+                raise ValueError(f"expected moments-major [K, 10, {g}], got "
+                                 f"{tuple(x_in.shape)}")
+            x = self.stem(x_in)                                # [K, G, 16]
+        else:
+            if x_in.ndim != 4 or x_in.shape[1] != g or x_in.shape[3] != 3:
+                raise ValueError(f"expected SPT samples [K, {g}, ns, 3], got "
+                                 f"{tuple(x_in.shape)}")
+            x = torch.amax(self.stem(x_in), dim=2)             # [K, G, 16]
         x = x.reshape(k, self.rad_n, self.ele_n, self.azi_n, 16)
         x = self.backbone(x.permute(0, 4, 1, 2, 3))            # [K, 32, e, a]
         w = self.att_gate(self.att_hidden(x))                  # [K, 1, e, a]

@@ -8,11 +8,13 @@ Counterpart of ``register_pair_jit`` -> ``_register_impl`` in
    centroid-centred f32 distance matrices; density-aware radii; and every
    scale's stratified patch selection in one pass over each matrix
    (kernel K2).
-2. :func:`_scale_candidates`, once per scale (unrolled): LRF alignment, SPT
-   moment pooling (kernel K3) and derotation, the descriptor net, mutual
-   matching, the matched-equi gather (rounded through bf16 when
-   ``mxu_gather``, as the JAX one-hot product rounds), the cost-volume
-   head and SO(2) pose candidates.
+2. :func:`_scale_candidates`, once per scale (unrolled): LRF alignment, the
+   SPT features (moment pooling, kernel K3, and derotation in "moments"
+   mode; the cell query, kernel K4, and derotation in "sampled" mode), the
+   descriptor net (its backbone the fused conv stack, kernel K5, when
+   ``fused_conv``), mutual matching, the matched-equi gather (rounded
+   through bf16 when ``mxu_gather``, as the JAX one-hot product rounds),
+   the cost-volume head and SO(2) pose candidates.
 3. :func:`_pool_and_solve`: cross-scale consensus, the sampling-pool
    policy, RANSAC with a weighted-Kabsch refit.
 
@@ -20,8 +22,8 @@ Random draws are explicit (:class:`Draws`): the strip offsets of the
 stratified query and the RANSAC rank draws. By default they come from a
 ``torch.Generator``; a test can pass the JAX package's draws instead.
 Options that the JAX package has but this slice does not port (batched and
-early-exit serving, GNC, IRLS refinement, other query and descriptor modes)
-raise ``NotImplementedError``.
+early-exit serving, GNC, IRLS refinement, other patch queries, the softmax
+pool, scale-vmapped or scale-batched convs) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from bufferx_tpu_torch.config import Config
 from bufferx_tpu_torch.device import resolve_device
+from bufferx_tpu_torch.geometry.cylindrical import spatial_point_transformer
 from bufferx_tpu_torch.geometry.lrf import align_patches
 from bufferx_tpu_torch.geometry.moments import (
     moments_to_features_mm,
@@ -109,6 +112,7 @@ class PipelineStatics:
     ele_n: int
     azi_n: int
     delta: float
+    voxel_sample: int
     inlier_th: float
     dist_th: float
     similar_th: float
@@ -146,6 +150,7 @@ class PipelineStatics:
             ele_n=p.ele_n,
             azi_n=p.azi_n,
             delta=p.delta,
+            voxel_sample=p.voxel_sample,
             inlier_th=m.inlier_th,
             dist_th=m.dist_th,
             similar_th=m.similar_th,
@@ -180,10 +185,10 @@ def _check_ported(s: PipelineStatics) -> None:
         missing.append("enable_early_exit=True")
     if s.clutter_filter:
         missing.append("clutter_filter=True (density prefilter)")
-    if s.desc_mode != "moments" or s.desc_pool != "gated":
+    if s.desc_mode not in ("moments", "sampled") or s.desc_pool != "gated":
         missing.append(f"desc_mode={s.desc_mode!r}/desc_pool={s.desc_pool!r}")
-    if s.fused_conv or s.vmap_scales or s.scale_batch_conv:
-        missing.append("fused_conv/vmap_scales/scale_batch_conv")
+    if s.vmap_scales or s.scale_batch_conv:
+        missing.append("vmap_scales/scale_batch_conv")
     l = s.max_points // s.patch_sample
     if (not s.strat_ball_query or s.max_points % s.patch_sample
             or l >= 1 << (31 - QBITS)):
@@ -199,12 +204,14 @@ def _check_ported(s: PipelineStatics) -> None:
 def build_models(statics: PipelineStatics, state_dicts: dict,
                  device="cuda") -> Models:
     """Descriptor net and cost-volume head with loaded weights (bf16
-    convs when ``statics.use_bf16``, as the JAX serving path runs)."""
+    convs when ``statics.use_bf16``, as the JAX serving path runs; the
+    fused conv stack when ``statics.fused_conv`` and the net qualifies)."""
     dev = resolve_device(device)
     dt = torch.bfloat16 if statics.use_bf16 else torch.float32
     desc = MiniSpinNet(statics.rad_n, statics.ele_n, statics.azi_n,
                        mode=statics.desc_mode, pool=statics.desc_pool,
-                       width=statics.desc_width, compute_dtype=dt)
+                       width=statics.desc_width, compute_dtype=dt,
+                       fused_conv=statics.fused_conv)
     pose = CostVolume(statics.azi_n, compute_dtype=dt)
     desc.load_state_dict(state_dicts["desc"], strict=True)
     pose.load_state_dict(state_dicts["pose"], strict=True)
@@ -312,7 +319,13 @@ def _precompute(statics: PipelineStatics, src: Cloud, tgt: Cloud,
 
 
 def _spt_features(normed, pmask, statics: PipelineStatics) -> torch.Tensor:
-    """Normalized aligned offsets -> moments-major features [K, 10, G]."""
+    """Normalized aligned offsets -> descriptor-net input: moments-major
+    features [K, 10, G], or in "sampled" mode the SPT's derotated cell
+    samples [K, G, voxel_sample, 3]."""
+    if statics.desc_mode == "sampled":
+        return spatial_point_transformer(
+            normed, pmask, statics.rad_n, statics.ele_n, statics.azi_n,
+            statics.delta, statics.voxel_sample)
     sub = statics.spt_pool_subsample
     if sub > 1:
         normed, pmask = normed[:, ::sub], pmask[:, ::sub]

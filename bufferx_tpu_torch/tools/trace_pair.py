@@ -1,10 +1,15 @@
 """Where one registration's time goes on the card.
 
     python3 -m bufferx_tpu_torch.tools.trace_pair [--pairs 3] [--trace PATH]
+        [--snapshot snapshot/hard --fused-conv]
 
-Runs the main path (``register_pair``'s stages, full width, the shipped
-``hard_moments_r4ft2`` weights) on seeded full-overlap pairs after a
-warm-up and prints:
+Runs ``register_pair``'s stages at full width on seeded full-overlap pairs
+after a warm-up: by default the main path (the shipped
+``hard_moments_r4ft2`` weights, "moments" descriptor); ``--snapshot``
+takes another checkpoint, whose ``config.json`` (if any) sets the
+descriptor mode (``snapshot/hard`` has none: the reference "sampled"
+descriptor), and ``--fused-conv`` runs the descriptor backbone as the
+fused conv stack. It prints:
 
 - per stage, the host wall time around the stage ending in a
   synchronize (precompute, each scale's candidates, consensus + solve);
@@ -63,6 +68,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--snapshot", default=SNAPSHOT,
+                    help="checkpoint directory (Desc/, Pose/, config.json)")
+    ap.add_argument("--fused-conv", action="store_true",
+                    help="run the descriptor backbone as the fused stack")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace_pair needs a CUDA card")
@@ -73,10 +82,13 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
 
-    cfg = make_cfg("ModelNet40").override(patch=dict(desc_mode="moments"))
-    cfg = cfg.override(patch=load_snapshot_config(SNAPSHOT))
+    cfg = make_cfg("ModelNet40").override(
+        patch=dict(load_snapshot_config(args.snapshot),
+                   fused_conv=args.fused_conv))
     statics = reg.PipelineStatics.from_config(cfg)
-    models = reg.build_models(statics, load_snapshot(SNAPSHOT), dev)
+    print(f"snapshot {os.path.normpath(args.snapshot)}: desc_mode "
+          f"{statics.desc_mode}, fused_conv {statics.fused_conv}", flush=True)
+    models = reg.build_models(statics, load_snapshot(args.snapshot), dev)
     pairs = []
     for i in range(args.pairs + 1):
         s, t, _T = synthetic_pair_full_overlap(np.random.RandomState(i), 24000)
@@ -116,6 +128,8 @@ def main() -> int:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "smi": smi,
+        "snapshot": os.path.normpath(args.snapshot),
+        "desc_mode": statics.desc_mode, "fused_conv": statics.fused_conv,
         "stages_ms": med, "profiled_wall_ms": wall_ms,
         "profiled_device_ms": device_ms,
         "idle_share": 1 - device_ms / wall_ms,

@@ -8,17 +8,27 @@ Phases (any failure raises and exits non-zero):
 2. build every CUDA kernel from ``bufferx_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it (taken from a real pair): FPS indices exact,
-   stratified query bit-exact, moment counts exact and sums within
-   |k - p| <= 1e-4 + 1e-5 |p| (f32 summation order); kernel, plain and
+   its path gives it (taken from a real pair): FPS indices exact,
+   stratified query and cell query bit-exact, moment counts exact and sums
+   within |k - p| <= 1e-4 + 1e-5 |p| (f32 summation order); the conv stack
+   twice on the path's input: with small random weights (outputs below 1)
+   within 1e-2 absolute and a mean error under 2^-10 of the mean magnitude,
+   and with the shipped weights (outputs near 10, where one bf16 step is
+   2^-4) within two bf16 steps at its largest output magnitude and a mean
+   error under 2^-8 of the mean magnitude (the two sum in another f32
+   order, so an activation near a bf16 rounding boundary rounds the other
+   way and later layers carry the step); kernel, plain and
    library-yardstick times (median of CUDA-event runs) and the bound;
 4. the main path: ``register_pair`` with the ``hard_moments_r4ft2`` weights
-   at full width (30208 points, 1500 keypoints, 2000 probes, 512-point
-   patches, 3 scales, 8192 hypotheses) on 4 seeded full-overlap pairs after
-   one warm-up; per-pair ms, RTE/RRE/success against ModelNet40's
-   thresholds; launch counts read around exactly these 4 registrations;
+   ("moments" descriptor) at full width (30208 points, 1500 keypoints, 2000
+   probes, 512-point patches, 3 scales, 8192 hypotheses) on 4 seeded
+   full-overlap pairs after one warm-up; per-pair ms, RTE/RRE/success
+   against ModelNet40's thresholds; launch counts read around exactly
+   these 4 registrations;
+4b. the sampled path: the same with the ``hard`` weights (the reference
+   "sampled" descriptor, 10 samples per cell) and ``fused_conv``;
 5. the card path against the CPU path (plain versions) end to end on a
-   small input with the same draws.
+   small input with the same draws, for both paths.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -36,29 +46,38 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(HERE, "snapshot", "hard_moments_r4ft2")
+SNAPSHOT_SAMPLED = os.path.join(HERE, "snapshot", "hard")
 NUM_PAIRS = 4
-# Successes of the JAX package on these 4 pairs, taken as the most there
-# can be (4 of 4): the JAX package cannot run on the card's machine, and
-# full-width runs are not made on the CPU-only build host. The threshold
-# below (this minus 1) is therefore at least as strict as any measured
-# JAX count would make it.
-JAX_SUCCESSES = 4
-# the main path's launches per pair: FPS for both clouds in one launch,
-# the stratified query once per cloud, moment pooling once per scale
-EXPECTED_PER_PAIR = {"fps": 1, "strat": 2, "moments": 3}
-# published H100 SXM peaks: HBM bytes/s and
-# float32 outside the tensor cores, flop/s
+# Successes of the JAX package on these 4 pairs at full width, on the CPU,
+# with its own draws (PRNGKey(i) for pair i): 4 of 4 on both paths. Each
+# path here must reach that count minus 1.
+JAX_SUCCESSES = {"moments": 4, "sampled": 4}
+# launches per pair: FPS for both clouds in one launch, the stratified query
+# once per cloud, then per scale moment pooling ("moments"), or the cell
+# query and the fused conv stack ("sampled" with fused_conv)
+EXPECTED_PER_PAIR = {
+    "moments": {"fps": 1, "strat": 2, "moments": 3, "cell_query": 0,
+                "conv_stack": 0},
+    "sampled": {"fps": 1, "strat": 2, "moments": 0, "cell_query": 3,
+                "conv_stack": 3},
+}
+# the path whose run gives a kernel's "launches" in the kernels line
+PATH_OF = {"fps": "moments", "strat": "moments", "moments": "moments",
+           "cell_query": "sampled", "conv_stack": "sampled"}
+# published H100 SXM peaks: HBM bytes/s, float32 outside the tensor
+# cores and dense bf16 on the tensor cores, flop/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_TC_PER_S = 989e12
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_F32_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -78,6 +97,51 @@ def time_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs):
+    """One warm-up, then ``register_pair`` on every pair with the launch
+    counts set to 0 just before and read just after; asserts the launches
+    per pair, finite poses and the success count. Returns the counts."""
+    gen = torch.Generator()
+    dev = pairs[0][2].device
+    reg.register_pair(cfg, pairs[0][0], pairs[0][1], models,
+                      generator=gen.manual_seed(100), device=dev)
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    per_pair = []
+    for i, (src, tgt, T) in enumerate(pairs):
+        before = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
+        t0 = time.perf_counter()
+        res = reg.register_pair(cfg, src, tgt, models,
+                                generator=gen.manual_seed(i), device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for kname, want_n in EXPECTED_PER_PAIR[name].items():
+            got_n = cuda_build.KERNELS[kname].launches - before[kname]
+            if got_n != want_n:
+                raise AssertionError(f"{name} pair {i}: {kname} launched "
+                                     f"{got_n} times, expected {want_n}")
+        pose = res.pose
+        if pose.shape != (4, 4) or not bool(torch.isfinite(pose).all()):
+            raise AssertionError(f"{name} pair {i}: pose not a finite 4x4: "
+                                 f"{pose}")
+        rte = float(se3.compute_rte(pose, T))
+        rre = float(se3.compute_rre(pose, T))
+        ok = rte < cfg.test.rte_thresh and rre < cfg.test.rre_thresh
+        per_pair.append(dict(ms=ms, success=ok))
+        log(f"{name} pair {i}: {ms:.1f} ms, RTE {rte:.4f} m, RRE {rre:.3f} "
+            f"deg, success {ok}, inliers {int(res.num_inliers)}, mutual "
+            f"{int(res.num_mutual)}")
+    launches = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
+    successes = sum(p["success"] for p in per_pair)
+    log(f"{name} path: {successes}/{len(pairs)} successes, median "
+        f"{float(np.median([p['ms'] for p in per_pair])):.1f} ms/pair, "
+        f"launches {launches}")
+    if successes < JAX_SUCCESSES[name] - 1:
+        raise AssertionError(f"{name}: {successes} successes < JAX package's "
+                             f"{JAX_SUCCESSES[name]} - 1")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bufferx_tpu_torch")):
         log("chip_smoke: bufferx_tpu_torch/ is not beside this script")
@@ -95,10 +159,15 @@ def main() -> int:
     from bufferx_tpu_torch.core import se3
     from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
     from bufferx_tpu_torch.geometry import spt_pallas
-    from bufferx_tpu_torch.geometry.cylindrical import grid_cell_centers
+    from bufferx_tpu_torch.geometry.cylindrical import (
+        grid_cell_centers,
+        spatial_point_transformer,
+    )
     from bufferx_tpu_torch.geometry.lrf import align_patches
+    from bufferx_tpu_torch.kernels import conv_pallas
     from bufferx_tpu_torch.kernels import fps as fps_mod
     from bufferx_tpu_torch.kernels import strat_pallas
+    from bufferx_tpu_torch.models.layers import CylindricalConvNet
     from bufferx_tpu_torch.pipeline import registration as reg
     from bufferx_tpu_torch.tools.weights import (
         load_snapshot,
@@ -124,12 +193,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{k.name}]: {line.strip()}")
 
-    # ---- main-path configuration and pairs --------------------------------
+    # ---- both paths' configurations and the pairs -------------------------
     cfg = make_cfg("ModelNet40").override(patch=dict(desc_mode="moments"))
     cfg = cfg.override(patch=load_snapshot_config(SNAPSHOT))
     statics = reg.PipelineStatics.from_config(cfg)
     log(f"statics: {statics}")
     models = reg.build_models(statics, load_snapshot(SNAPSHOT), dev)
+    # snapshot/hard has no config.json: the default desc_mode="sampled"
+    cfg_s = make_cfg("ModelNet40").override(
+        patch=dict(load_snapshot_config(SNAPSHOT_SAMPLED), fused_conv=True))
+    statics_s = reg.PipelineStatics.from_config(cfg_s)
+    sd_s = load_snapshot(SNAPSHOT_SAMPLED)
+    models_s = reg.build_models(statics_s, sd_s, dev)
+    if statics_s.desc_mode != "sampled" or not models_s.desc.fused:
+        raise AssertionError("the sampled path did not configure the fused "
+                             "conv stack")
     pairs = []
     for i in range(NUM_PAIRS):
         s, t, T = synthetic_pair_full_overlap(np.random.RandomState(i),
@@ -138,7 +216,7 @@ def main() -> int:
                       reg.prepare_cloud(t, cfg, seed=i, device=dev),
                       torch.from_numpy(T).to(dev)))
 
-    # ---- 3. kernels against their plain versions at main-path shapes ------
+    # ---- 3. kernels against their plain versions at their paths' shapes ---
     src, tgt, _ = pairs[0]
     draws = reg.make_draws(statics, torch.Generator().manual_seed(0), dev)
     pre = reg._precompute(statics, src, tgt, draws)
@@ -235,74 +313,149 @@ def main() -> int:
                        9.0 * kq * g * p + 16.0 * hits),
         shapes=f"patches {list(normed.shape)} -> {list(got.shape)}",
     ))
+
+    # K4: the same patches, the sampled path's cell query
+    ns = statics_s.voxel_sample
+    got = spt_pallas.spt_cell_query_cuda(normed, pmask, cells, radius, ns)
+    want = spt_pallas.spt_cell_query_plain(normed, pmask, cells, radius, ns)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"cell_query: {int((got != want).any(-1).sum())} slots differ")
+    # tests this data needs: per (patch, cell), up to its ns-th hit in row
+    # order, or every point when it has fewer hits
+    tests = 0
+    for i in range(0, kq, 250):
+        hit = spt_pallas.in_radius(normed[i:i + 250], cells, r2) \
+            & pmask[i:i + 250, None, :]
+        reached = (torch.cumsum(hit.to(torch.int32), -1) >= ns).to(
+            torch.int32)
+        tests += int(torch.where(reached.any(-1), reached.argmax(-1) + 1,
+                                 p).sum())
+    kernels.append(dict(
+        name="cell_query", match="bit-exact", max_abs_err=0.0,
+        ms=time_ms(torch, lambda: spt_pallas.spt_cell_query_cuda(
+            normed, pmask, cells, radius, ns), 20),
+        plain_ms=time_ms(torch, lambda: spt_pallas.spt_cell_query_plain(
+            normed, pmask, cells, radius, ns), 3),
+        library_ms=None,
+        bound=bound_ms(kq * p * 13 + g * 12 + got.numel() * 4, 9.0 * tests),
+        shapes=f"patches {list(normed.shape)} -> {list(got.shape)}",
+    ))
+
+    # K5: the sampled stem's output on those cells, through the fused stack
+    with torch.no_grad():
+        inv = spatial_point_transformer(
+            normed, pmask, statics_s.rad_n, statics_s.ele_n, statics_s.azi_n,
+            statics_s.delta, ns).to(torch.bfloat16)
+        x5 = torch.amax(models_s.desc.stem(inv), dim=2).reshape(
+            kq, statics_s.rad_n, statics_s.ele_n, statics_s.azi_n, 16)
+    w5, b5 = models_s.desc.backbone.folded_w, models_s.desc.backbone.folded_b
+
+    def compare_stack(label, w, b):
+        got = conv_pallas.cyl_conv_stack_cuda(x5, w, b)
+        want = conv_pallas.cyl_conv_stack_plain(x5, w, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        log(f"conv_stack, {label}: max err {float(err.max())}, mean err "
+            f"{float(err.mean())}, max |p| {float(want.abs().max())}, "
+            f"mean |p| {float(want.abs().mean())}, entries differing "
+            f"{int((err > 0).sum())}, by more than 1e-2 "
+            f"{int((err > 1e-2).sum())}, of {err.numel()}")
+        return got, want, err
+
+    # small random weights on the fold's layout: outputs stay below 1, so
+    # a rounding flip is at most a few 2^-9 steps and 1e-2 holds between
+    # f32 summation orders, while a wrong rounding mode (truncation, say)
+    # moves most entries and shows in the mean error
+    rs5 = np.random.RandomState(3)
+    w5r = torch.from_numpy((w5.float().cpu().numpy() != 0)
+                           * rs5.randn(*w5.shape).astype(np.float32) * 0.03)
+    w5r = w5r.to(torch.bfloat16).to(dev)
+    b5r = torch.from_numpy((rs5.randn(*b5.shape) * 0.1).astype(np.float32))
+    b5r = b5r.to(dev)
+    _, want_r, err_r = compare_stack("random weights", w5r, b5r)
+    if float(want_r.abs().max()) >= 1.0 or float(err_r.max()) > 1e-2 or \
+            float(err_r.mean()) > 2.0 ** -10 * float(want_r.abs().mean()):
+        raise AssertionError("conv_stack: kernel and plain version differ "
+                             "beyond 1e-2 (or 2^-10 of the mean magnitude "
+                             "on average) with small random weights")
+    got, want, err = compare_stack("shipped weights", w5, b5)
+    step = 2.0 ** float(torch.floor(torch.log2(want.abs().max())))
+    if float(err.max()) > 2.0 ** -6 * step or \
+            float(err.mean()) > 2.0 ** -8 * float(want.abs().mean()):
+        raise AssertionError("conv_stack: kernel and plain version differ "
+                             "by more than bf16 rounding flips")
+    cudnn = CylindricalConvNet(32, 1.0, torch.bfloat16)
+    cudnn.load_state_dict(models_s.desc.backbone.state_dict(), strict=True)
+    cudnn = cudnn.to(dev).eval()
+    x5_cf = x5.permute(0, 4, 1, 2, 3)
+
+    def cudnn_stack():
+        with torch.no_grad():
+            return cudnn(x5_cf)
+
+    flops = 2.0 * kq * 7 * 20 * 9 * sum(
+        ci * co for ci, co in conv_pallas.CYL_LAYER_CHANNELS)
+    kernels.append(dict(
+        name="conv_stack",
+        match="random weights: within 1e-2, mean err <= 2^-10 mean|p|; "
+              "shipped weights: within 2 bf16 steps at max|p|, mean err "
+              "<= 2^-8 mean|p|",
+        max_abs_err=float(err.max()),
+        extra=dict(max_abs_err_random_weights=float(err_r.max()),
+                   mean_abs_err_random_weights=float(err_r.mean()),
+                   mean_abs_err=float(err.mean())),
+        ms=time_ms(torch, lambda: conv_pallas.cyl_conv_stack_cuda(
+            x5, w5, b5), 10),
+        plain_ms=time_ms(torch, lambda: conv_pallas.cyl_conv_stack_plain(
+            x5, w5, b5), 3),
+        library_ms=time_ms(torch, cudnn_stack, 5),
+        bound=bound_ms(x5.numel() * 4 + w5.numel() * 2 + b5.numel() * 4
+                       + got.numel() * 4, flops, PEAK_BF16_TC_PER_S),
+        shapes=f"x {list(x5.shape)} -> {list(got.shape)}",
+    ))
     for kr in kernels:
         log(f"{kr['name']}: {kr['shapes']} matches the plain version; "
             f"kernel {kr['ms']:.3f} ms, plain {kr['plain_ms']:.3f} ms, "
             f"library {kr['library_ms']}, bound {kr['bound'][0]:.4f} ms "
             f"({kr['bound'][1]})")
 
-    # ---- 4. the main path -------------------------------------------------
-    gen = torch.Generator()
-    res = reg.register_pair(cfg, pairs[0][0], pairs[0][1], models,
-                            generator=gen.manual_seed(100), device=dev)
-    torch.cuda.synchronize()
-    cuda_build.reset_launch_counts()
-    per_pair = []
-    for i, (src, tgt, T) in enumerate(pairs):
-        before = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
-        t0 = time.perf_counter()
-        res = reg.register_pair(cfg, src, tgt, models,
-                                generator=gen.manual_seed(i), device=dev)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        for name, want_n in EXPECTED_PER_PAIR.items():
-            got_n = cuda_build.KERNELS[name].launches - before[name]
-            if got_n != want_n:
-                raise AssertionError(
-                    f"pair {i}: {name} launched {got_n} times, expected {want_n}")
-        pose = res.pose
-        if pose.shape != (4, 4) or not bool(torch.isfinite(pose).all()):
-            raise AssertionError(f"pair {i}: pose not a finite 4x4: {pose}")
-        rte = float(se3.compute_rte(pose, T))
-        rre = float(se3.compute_rre(pose, T))
-        ok = rte < cfg.test.rte_thresh and rre < cfg.test.rre_thresh
-        per_pair.append(dict(ms=ms, rte=rte, rre=rre, success=ok))
-        log(f"pair {i}: {ms:.1f} ms, RTE {rte:.4f} m, RRE {rre:.3f} deg, "
-            f"success {ok}, inliers {int(res.num_inliers)}, "
-            f"mutual {int(res.num_mutual)}")
-    launches = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
-    successes = sum(p["success"] for p in per_pair)
-    log(f"main path: {successes}/{NUM_PAIRS} successes, median "
-        f"{float(np.median([p['ms'] for p in per_pair])):.1f} ms/pair, "
-        f"launches {launches}")
-    if successes < JAX_SUCCESSES - 1:
-        raise AssertionError(
-            f"{successes} successes < JAX package's {JAX_SUCCESSES} - 1")
+    # ---- 4. the main path; 4b. the sampled path ---------------------------
+    launches = {
+        "moments": run_path(torch, reg, se3, cuda_build, "moments", cfg,
+                            models, pairs),
+        "sampled": run_path(torch, reg, se3, cuda_build, "sampled", cfg_s,
+                            models_s, pairs),
+    }
 
     # ---- 5. card path against CPU path on a small input -------------------
-    small = cfg.override(
+    shrink = dict(
         capacity=dict(max_points=2048, num_ransac_hypotheses=256,
                       ransac_chunk=128),
         patch=dict(num_fps=128, num_points_radius_estimate=160,
                    num_points_per_patch=64),
     )
-    s_st = reg.PipelineStatics.from_config(small)
-    s, t, T = synthetic_pair_full_overlap(np.random.RandomState(7), 2000)
-    sdraws = reg.make_draws(s_st, torch.Generator().manual_seed(7), "cpu")
-    sd = load_snapshot(SNAPSHOT)
-    poses = {}
-    for d in ("cpu", "cuda"):
-        dr = reg.Draws(*(x.to(d) for x in sdraws))
-        r = reg.register_pair(small, reg.prepare_cloud(s, small, 7, d),
-                              reg.prepare_cloud(t, small, 7, d), sd,
-                              draws=dr, device=d)
-        poses[d] = r.pose.cpu()
-    d_rte = float(se3.compute_rte(poses["cuda"], poses["cpu"]))
-    d_rre = float(se3.compute_rre(poses["cuda"], poses["cpu"]))
-    log(f"small pair, card vs CPU: pose differs by {d_rte:.2e} m, "
-        f"{d_rre:.3f} deg")
-    if d_rte > 0.02 or d_rre > 1.0:
-        raise AssertionError("card and CPU paths disagree on the small pair")
+    for name, base, sd in (("moments", cfg, load_snapshot(SNAPSHOT)),
+                           ("sampled", cfg_s, sd_s)):
+        small = base.override(**shrink)
+        s_st = reg.PipelineStatics.from_config(small)
+        s, t, T = synthetic_pair_full_overlap(np.random.RandomState(7), 2000)
+        sdraws = reg.make_draws(s_st, torch.Generator().manual_seed(7), "cpu")
+        poses = {}
+        for d in ("cpu", "cuda"):
+            dr = reg.Draws(*(x.to(d) for x in sdraws))
+            r = reg.register_pair(small, reg.prepare_cloud(s, small, 7, d),
+                                  reg.prepare_cloud(t, small, 7, d), sd,
+                                  draws=dr, device=d)
+            poses[d] = r.pose.cpu()
+        d_rte = float(se3.compute_rte(poses["cuda"], poses["cpu"]))
+        d_rre = float(se3.compute_rre(poses["cuda"], poses["cpu"]))
+        log(f"{name} small pair, card vs CPU: pose differs by {d_rte:.2e} m, "
+            f"{d_rre:.3f} deg")
+        if d_rte > 0.02 or d_rre > 1.0:
+            raise AssertionError(f"{name}: card and CPU paths disagree on the "
+                                 "small pair")
 
     # ---- result lines -----------------------------------------------------
     out = []
@@ -311,10 +464,13 @@ def main() -> int:
         out.append(dict(
             name=kr["name"], route="cuda", match=kr["match"],
             source=os.path.relpath(kk.source_path, HERE),
-            replaces=kk.replaces, launches=launches[kr["name"]],
+            replaces=kk.replaces,
+            launches=launches[PATH_OF[kr["name"]]][kr["name"]],
+            launches_by_path={n: c[kr["name"]] for n, c in launches.items()},
             max_abs_err=kr["max_abs_err"], ms=kr["ms"],
             plain_ms=kr["plain_ms"], bound_ms=kr["bound"][0],
             bound_by=kr["bound"][1], library_ms=kr["library_ms"],
+            **kr.get("extra", {}),
         ))
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

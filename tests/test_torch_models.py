@@ -1,5 +1,8 @@
 """Port parity: MiniSpinNet (moments, gated) and CostVolume, layer by layer,
-with the shipped ``hard_moments_r4ft2`` checkpoint, in float32 and bf16.
+with the shipped ``hard_moments_r4ft2`` checkpoint, in float32 and bf16; and
+the sampled MiniSpinNet with ``snapshot/hard`` in bf16, with the cuDNN
+backbone and with the fused conv stack (kernel K5's plain version on the
+JAX side's ``cyl_conv_stack_reference``).
 
 Tolerances, against the layer's largest magnitude (at least 1): float32
 layers to 1e-5 (convolutions sum in another order in XLA and in PyTorch;
@@ -7,7 +10,10 @@ measured <= 1.1e-6); bf16 layers to 3e-2 (a bf16 rounding flip, 2^-8
 relative, moves an activation by one bf16 step that later layers carry;
 measured <= 1.1e-2). Outputs: desc/equi to 1e-5 in f32 and 5e-3/2e-2 in
 bf16 (measured 5.6e-4/3.4e-3); the rotation index to 1e-4 bins in f32 and
-0.05 bins (0.9 degrees) in bf16 (measured 8.8e-3).
+0.05 bins (0.9 degrees) in bf16 (measured 8.8e-3). The sampled net keeps
+the same bf16 tolerances; the fused backbone's output carries bf16 steps
+that a rounding flip propagates (one step is 2^-7 of the value, under the
+3e-2 layer bound).
 """
 
 import os
@@ -27,19 +33,22 @@ from bufferx_tpu_torch.tools.weights import load_snapshot
 
 SNAP = os.path.join(os.path.dirname(__file__), "..", "snapshot",
                     "hard_moments_r4ft2")
+SNAP_SAMPLED = os.path.join(os.path.dirname(__file__), "..", "snapshot",
+                            "hard")
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 LAYER_TOL = {"f32": 1e-5, "bf16": 3e-2}
 
 
+def _restore(snap, stage):
+    with open(os.path.join(snap, stage, "best.msgpack"), "rb") as f:
+        tree = flax.serialization.msgpack_restore(f.read())
+    return jax.tree.map(jnp.asarray, tree)
+
+
 @pytest.fixture(scope="module")
 def weights():
-    def restore(stage):
-        with open(os.path.join(SNAP, stage, "best.msgpack"), "rb") as f:
-            tree = flax.serialization.msgpack_restore(f.read())
-        return jax.tree.map(jnp.asarray, tree)
-
-    return {"desc": restore("Desc"), "pose": restore("Pose"),
+    return {"desc": _restore(SNAP, "Desc"), "pose": _restore(SNAP, "Pose"),
             "torch": load_snapshot(SNAP)}
 
 
@@ -128,8 +137,52 @@ def test_cost_volume_layerwise(weights, dt):
     assert err <= ind_tol, f"rotation index off by {err} bins"
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_minispinnet_sampled_layerwise(fused):
+    """Sampled mode with ``snapshot/hard`` in bf16: stem, backbone output,
+    attention layers and outputs against the JAX net."""
+    rs = np.random.RandomState(2)
+    x = (rs.randn(6, 420, 10, 3) * 0.3).astype(np.float32)
+    jm = JaxMiniSpinNet(mode="sampled", pool="gated",
+                        compute_dtype=jnp.bfloat16, fused_conv=fused)
+    out, inter = jm.apply(_restore(SNAP_SAMPLED, "Desc"), jnp.asarray(x),
+                          train=False, capture_intermediates=True)
+    inter = inter["intermediates"]
+    tm = MiniSpinNet(mode="sampled", compute_dtype=torch.bfloat16,
+                     fused_conv=fused)
+    tm.load_state_dict(load_snapshot(SNAP_SAMPLED)["desc"], strict=True)
+    tm.eval()
+    assert tm.fused == fused
+    got = _hook_outputs({"stem": tm.stem, "backbone": tm.backbone,
+                         "att_hidden": tm.att_hidden, "att_gate": tm.att_gate})
+    with torch.no_grad():
+        o = tm(torch.from_numpy(x))
+    tol = LAYER_TOL["bf16"]
+    _close(inter["ConvBNRelu_0"]["__call__"][0], got["stem"], tol, "stem")
+    _close(inter["CylindricalConvNet_0"]["__call__"][0][0],
+           torch.movedim(got["backbone"], 1, -1), tol, "backbone")
+    for jname, tname in (("ConvBNRelu_1", "att_hidden"),
+                         ("ConvBNRelu_2", "att_gate")):
+        _close(inter[jname]["__call__"][0], torch.movedim(got[tname], 1, -1),
+               tol, tname)
+    _close(out["desc"], o["desc"], 5e-3, "desc")
+    _close(out["equi"], o["equi"], 2e-2, "equi")
+
+
 def test_minispinnet_rejects_unported_modes():
     with pytest.raises(NotImplementedError):
-        MiniSpinNet(mode="sampled")
-    with pytest.raises(NotImplementedError):
         MiniSpinNet(pool="softmax")
+    with pytest.raises(NotImplementedError):
+        MiniSpinNet(mode="sampled", pool="softmax")
+    with pytest.raises(ValueError):
+        MiniSpinNet(mode="voxel")
+    sampled = MiniSpinNet(mode="sampled")
+    assert type(sampled.backbone).__name__ == "CylindricalConvNet"
+    with pytest.raises(ValueError):          # sampled input is [K, G, ns, 3]
+        sampled(torch.zeros(2, 10, 420))
+    # the fused stack only under the JAX package's condition
+    assert not MiniSpinNet(mode="sampled", fused_conv=True).fused   # f32
+    assert not MiniSpinNet(mode="sampled", compute_dtype=torch.bfloat16,
+                           fused_conv=True, width=2.0).fused
+    assert MiniSpinNet(mode="sampled", compute_dtype=torch.bfloat16,
+                       fused_conv=True).fused

@@ -2,7 +2,8 @@
 JAX package on seeded synthetic pairs at a small size (2048 points, 128
 keypoints, 160 probes, 64-point patches, 256 hypotheses), with the
 ``hard_moments_r4ft2`` weights in bf16 and JAX's own random draws (strip
-offsets and RANSAC ranks) fed to the port.
+offsets and RANSAC ranks) fed to the port; and the reference "sampled"
+descriptor with the fused conv stack and the ``snapshot/hard`` weights.
 
 Tolerances: keypoints and radii exact (FPS is exact; radii are rounded to
 1 cm); d2 to 1e-4 (the JAX side is bf16 hi/lo-compensated, error
@@ -10,7 +11,8 @@ Tolerances: keypoints and radii exact (FPS is exact; radii are rounded to
 slots valid on both sides agree to 1e-6 (they decode the same quantized
 coordinates). Final poses agree to 0.02 m and 2 degrees (bf16 descriptors
 and boundary flips move a few matches; measured <= 5.6 mm and 0.66 deg),
-and success against ModelNet40's thresholds agrees pair by pair.
+and success against ModelNet40's thresholds agrees pair by pair; the
+sampled + fused path is held to the same bounds.
 """
 
 import os
@@ -33,6 +35,8 @@ from bufferx_tpu_torch.tools.weights import load_snapshot
 
 SNAP = os.path.join(os.path.dirname(__file__), "..", "snapshot",
                     "hard_moments_r4ft2")
+SNAP_SAMPLED = os.path.join(os.path.dirname(__file__), "..", "snapshot",
+                            "hard")
 SMALL = dict(
     patch=dict(desc_mode="moments", desc_pool="gated", num_fps=128,
                num_points_radius_estimate=160, num_points_per_patch=64),
@@ -52,6 +56,26 @@ def setup():
                 jnp.asarray, flax.serialization.msgpack_restore(f.read()))
     tstat = treg.PipelineStatics.from_config(tcfg)
     models = treg.build_models(tstat, load_snapshot(SNAP), "cpu")
+    return jcfg, tcfg, params, models
+
+
+@pytest.fixture(scope="module")
+def sampled_setup():
+    """The sampled + fused configuration: ``snapshot/hard`` has no
+    config.json, so the default ``desc_mode="sampled"`` stands."""
+    small = dict(SMALL, patch=dict(SMALL["patch"], desc_mode="sampled",
+                                   fused_conv=True))
+    jcfg = jax_make_cfg("ModelNet40").override(**small)
+    tcfg = make_cfg("ModelNet40").override(**small)
+    params = {stage.lower(): jax.tree.map(jnp.asarray,
+                                          flax.serialization.msgpack_restore(
+                                              open(os.path.join(
+                                                  SNAP_SAMPLED, stage,
+                                                  "best.msgpack"), "rb").read()))
+              for stage in ("Desc", "Pose")}
+    tstat = treg.PipelineStatics.from_config(tcfg)
+    models = treg.build_models(tstat, load_snapshot(SNAP_SAMPLED), "cpu")
+    assert models.desc.fused and tstat.desc_mode == "sampled"
     return jcfg, tcfg, params, models
 
 
@@ -119,8 +143,7 @@ def test_precompute_matches(setup):
             rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("i", [0, 1, 2])
-def test_register_pair_matches(setup, i):
+def _check_register_pair(setup, i):
     jcfg, tcfg, params, models = setup
     jsrc, jtgt, tsrc, ttgt, T = _pair(i, jcfg, tcfg)
     jst = jreg.PipelineStatics.from_config(jcfg)
@@ -144,6 +167,16 @@ def test_register_pair_matches(setup, i):
     assert bool(tres.valid) == bool(jres.valid)
     n_mutual = int(jres.num_mutual)
     assert abs(int(tres.num_mutual) - n_mutual) <= 0.1 * n_mutual
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_register_pair_matches(setup, i):
+    _check_register_pair(setup, i)
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_register_pair_sampled_fused_matches(sampled_setup, i):
+    _check_register_pair(sampled_setup, i)
 
 
 def test_register_pair_device_policy(setup, monkeypatch):

@@ -20,6 +20,8 @@ from bufferx_tpu_torch.tools.weights import (
 
 SNAP = os.path.join(os.path.dirname(__file__), "..", "snapshot",
                     "hard_moments_r4ft2")
+SNAP_SAMPLED = os.path.join(os.path.dirname(__file__), "..", "snapshot",
+                            "hard")
 
 
 def _assert_same_tree(a, b, path=""):
@@ -103,3 +105,31 @@ def test_snapshot_config():
     assert load_snapshot_config(SNAP) == {"desc_mode": "moments",
                                           "desc_pool": "gated"}
     assert isinstance(load_snapshot(SNAP)["pose"]["stem.weight"], torch.Tensor)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_sampled_snapshot_loads_strict(fused):
+    """``snapshot/hard`` (sampled mode, no config.json) maps through
+    DESC_MODULES onto the sampled MiniSpinNet, with the cuDNN or the fused
+    backbone; its point-MLP stem is the flax [1, 1, 3, 16] kernel."""
+    assert load_snapshot_config(SNAP_SAMPLED) == {}
+    sd = load_snapshot(SNAP_SAMPLED)
+    desc = MiniSpinNet(mode="sampled", compute_dtype=torch.bfloat16,
+                       fused_conv=fused)
+    assert desc.fused == fused
+    missing, unexpected = desc.load_state_dict(sd["desc"], strict=True)
+    assert not missing and not unexpected
+    CostVolume().load_state_dict(sd["pose"], strict=True)
+    with open(os.path.join(SNAP_SAMPLED, "Desc", "best.msgpack"), "rb") as f:
+        flax_desc = flax.serialization.msgpack_restore(f.read())
+    stem = flax_desc["params"]["ConvBNRelu_0"]["Conv_0"]["kernel"]
+    assert stem.shape == (1, 1, 3, 16)
+    np.testing.assert_array_equal(desc.stem.weight.detach().numpy(),
+                                  np.transpose(stem, (3, 2, 0, 1)))
+    if fused:   # folded once, on load, from the loaded weights
+        from bufferx_tpu_torch.kernels.conv_pallas import fold_cyl_stack
+
+        w, b = fold_cyl_stack(desc.backbone.state_dict())
+        assert torch.equal(desc.backbone.folded_w, w)
+        assert torch.equal(desc.backbone.folded_b, b)
+        assert bool(desc.backbone.folded_w.abs().sum() > 0)
