@@ -14,12 +14,18 @@ value as f32, ``[K, ele=7, azi=20, 32]``.
 :func:`cyl_conv_stack_plain` mirrors the JAX package's
 ``cyl_conv_stack_reference`` with the same rounding points; the kernel sums
 in another order, so a bf16 rounding step can flip between the two.
+
+The kernel reads its weights in the byte order its shared-memory tiles
+want (:func:`pack_cyl_weights`, a pure permutation of the fold's real
+entries); :class:`~bufferx_tpu_torch.models.layers.FusedCylindricalConvNet`
+packs once where it folds and hands the packed tensor in.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +35,7 @@ __all__ = [
     "CONV_STACK_KERNEL",
     "CYL_LAYER_CHANNELS",
     "fold_cyl_stack",
+    "pack_cyl_weights",
     "cyl_conv_stack_plain",
     "cyl_conv_stack_cuda",
     "cyl_conv_stack",
@@ -89,6 +96,33 @@ def fold_cyl_stack(state: dict, eps: float = 1e-5):
     return w_all.to(torch.bfloat16), b_all
 
 
+def _pack_index() -> np.ndarray:
+    """Flat indices into the fold's ``[5328, 128]`` matrix in the kernel's
+    order: per layer, per tap ``(de, da)``, the tap's ``[ci, co]`` matrix as
+    ``[ci/8][co][8]`` (8 input channels contiguous per output channel, the
+    core-matrix order of a wgmma operand with k contiguous)."""
+    parts = []
+    for (ci, co), off in zip(CYL_LAYER_CHANNELS, _W_OFFSETS):
+        rows = off + np.arange(9 * ci).reshape(9, ci // 8, 8)     # [tap, kc, k8]
+        flat = rows[:, :, None, :] * _LANES + np.arange(co)[None, None, :, None]
+        parts.append(flat.reshape(-1))                   # [tap, kc, co, k8]
+    return np.concatenate(parts)
+
+
+_PACK_INDEX = _pack_index()           # 423936 = 9 * sum(ci * co)
+
+
+def pack_cyl_weights(w: torch.Tensor) -> torch.Tensor:
+    """The folded weights ``[5328, 128]`` in the kernel's tile order (see
+    :func:`_pack_index`): a permutation of the entries of the real output
+    channels, 1-D, same dtype and device. The zero padding lanes are not
+    carried."""
+    if tuple(w.shape) != (_W_ROWS, _LANES):
+        raise ValueError(f"conv-stack weights [5328, 128], got {tuple(w.shape)}")
+    index = torch.from_numpy(_PACK_INDEX).to(w.device)
+    return w.reshape(-1)[index].contiguous()
+
+
 def _check_input(x: torch.Tensor) -> None:
     if tuple(x.shape[1:]) != (3, _ELE, _AZI, 16):
         raise ValueError(f"conv stack expects [K, 3, 7, 20, 16], got "
@@ -119,9 +153,11 @@ def cyl_conv_stack_plain(x, w, b) -> torch.Tensor:
     return cur.to(torch.float32)
 
 
-def cyl_conv_stack_cuda(x, w, b) -> torch.Tensor:
+def cyl_conv_stack_cuda(x, w, b, packed=None) -> torch.Tensor:
     """K5 on the card; same contract as :func:`cyl_conv_stack_plain`. Reads
-    x in f32 and rounds it to bf16 as it stages it."""
+    x in f32 and rounds it to bf16 as it stages it. ``packed`` is
+    ``pack_cyl_weights(w)`` made ahead (as the fused module does); without
+    it the weights are packed here, one gather per call."""
     _check_input(x)
     x = x.to(torch.float32).contiguous()
     require_cuda(x, torch.float32, "conv-stack input")
@@ -130,18 +166,25 @@ def cyl_conv_stack_cuda(x, w, b) -> torch.Tensor:
     if tuple(w.shape) != (_W_ROWS, _LANES) or tuple(b.shape) != (8, _LANES):
         raise ValueError(f"conv-stack weights [5328, 128] and bias [8, 128], "
                          f"got {tuple(w.shape)} and {tuple(b.shape)}")
+    if packed is None:
+        packed = pack_cyl_weights(w)
+    require_cuda(packed, torch.bfloat16, "conv-stack packed weights")
+    if tuple(packed.shape) != (_PACK_INDEX.size,):
+        raise ValueError(f"conv-stack packed weights [{_PACK_INDEX.size}], "
+                         f"got {tuple(packed.shape)}")
     k = x.shape[0]
     out = torch.empty((k, _ELE, _AZI, _DIM), dtype=torch.float32,
                       device=x.device)
     if k:
-        CONV_STACK_KERNEL.launch(ptr(x), ptr(w), ptr(b), k, ptr(out))
+        CONV_STACK_KERNEL.launch(ptr(x), ptr(packed), ptr(b), k, ptr(out))
     return out
 
 
-def cyl_conv_stack(x, w, b) -> torch.Tensor:
-    """Dispatch: the plain version for CPU tensors, K5 for CUDA tensors."""
+def cyl_conv_stack(x, w, b, packed=None) -> torch.Tensor:
+    """Dispatch: the plain version for CPU tensors, K5 for CUDA tensors
+    (which reads ``packed``, see :func:`cyl_conv_stack_cuda`)."""
     if x.is_cuda:
-        return cyl_conv_stack_cuda(x, w, b)
+        return cyl_conv_stack_cuda(x, w, b, packed)
     if x.device.type == "cpu":
         return cyl_conv_stack_plain(x, w, b)
     raise ValueError(f"cyl_conv_stack: unsupported device {x.device}")

@@ -22,15 +22,17 @@ __all__ = [
     "FPS_KERNEL",
     "farthest_point_sampling_plain",
     "farthest_point_sampling_cuda",
+    "fps_exchange_floor_cuda",
     "fps",
 ]
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 FPS_KERNEL = register(CudaKernel(
     "fps", "fps.cu", replaces="bufferx_tpu/kernels/fps.py:87",
-    entry="bx_fps", argtypes=[_V, _V, _I, _I, _I, _V],
+    entry="bx_fps", argtypes=[_V, _V, _I, _I, _I, _V, _I],
 ))
-_MAX_POINTS = 32 * 1024   # 1024 threads x 32 register slots per thread
+# a cluster of 8 blocks x 256 threads x 16 register slots per thread
+_MAX_POINTS = 32 * 1024
 
 
 def _sqdist3(diff: torch.Tensor) -> torch.Tensor:
@@ -59,16 +61,31 @@ def farthest_point_sampling_plain(xyz: torch.Tensor, mask: torch.Tensor,
 
 def farthest_point_sampling_cuda(xyz: torch.Tensor, mask: torch.Tensor,
                                  num_samples: int) -> torch.Tensor:
-    """K1 on the card: raw FPS indices [B, num_samples] int32."""
+    """K1 on the card: raw FPS indices [B, num_samples] int32. The kernel
+    reads ``xyz [B, N, 3]`` and the bool mask as they are (no copies)."""
+    return _launch(xyz, mask, num_samples, exchange_only=False)
+
+
+def fps_exchange_floor_cuda(xyz: torch.Tensor, mask: torch.Tensor,
+                            num_samples: int) -> None:
+    """K1's rounds with the slot exchange between the cluster's blocks and
+    its waits alone (no field update, no argmax): the time of this launch is
+    the latency floor of the kernel's design at these shapes."""
+    _launch(xyz, mask, num_samples, exchange_only=True)
+
+
+def _launch(xyz, mask, num_samples, exchange_only):
     b, n, _ = xyz.shape
-    if n > _MAX_POINTS:
-        raise ValueError(f"fps kernel takes at most {_MAX_POINTS} points, got {n}")
-    xyz_soa = xyz.transpose(1, 2).contiguous()                # [B, 3, N]
-    mask_u8 = mask.to(torch.uint8).contiguous()
-    require_cuda(xyz_soa, torch.float32, "fps xyz")
-    require_cuda(mask_u8, torch.uint8, "fps mask")
+    if not 1 <= n <= _MAX_POINTS:
+        raise ValueError(f"fps kernel takes 1 to {_MAX_POINTS} points, got {n}")
+    xyz = xyz.contiguous()
+    mask = mask.contiguous()
+    require_cuda(xyz, torch.float32, "fps xyz")
+    require_cuda(mask, torch.bool, "fps mask")
     out = torch.empty((b, num_samples), dtype=torch.int32, device=xyz.device)
-    FPS_KERNEL.launch(ptr(xyz_soa), ptr(mask_u8), b, n, num_samples, ptr(out))
+    if b and num_samples:
+        FPS_KERNEL.launch(ptr(xyz), ptr(mask), b, n, num_samples, ptr(out),
+                          int(exchange_only))
     return out
 
 

@@ -20,7 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bufferx_tpu_torch.kernels.conv_pallas import cyl_conv_stack, fold_cyl_stack
+from bufferx_tpu_torch.kernels.conv_pallas import (
+    cyl_conv_stack,
+    fold_cyl_stack,
+    pack_cyl_weights,
+)
 
 __all__ = ["pad_cyl_2d", "pad_cyl_3d", "ConvBNRelu", "CylindricalConvNet",
            "FusedCylindricalConvNet", "batch_norm"]
@@ -143,8 +147,9 @@ class FusedCylindricalConvNet(CylindricalConvNet):
     Parameter and buffer names are those of the bf16 ``CylindricalConvNet``,
     so the same state dicts load with ``strict=True``. The fold runs once,
     when the module is built and after every ``load_state_dict``, into the
-    non-persistent buffers ``folded_w`` [5328, 128] bf16 and ``folded_b``
-    [8, 128] f32; parameters edited in place afterwards need
+    non-persistent buffers ``folded_w`` [5328, 128] bf16, ``folded_b``
+    [8, 128] f32 and ``packed_w`` (``folded_w`` in the kernel's tile order,
+    :func:`pack_cyl_weights`); parameters edited in place afterwards need
     :meth:`refold`. Serving only: the forward raises in training mode, as
     the JAX module asserts ``not train``, so call ``.eval()`` first. Fixed
     geometry: rad 3, ele 7, azi 20, 16 stem channels, width 1, dim 32.
@@ -161,6 +166,7 @@ class FusedCylindricalConvNet(CylindricalConvNet):
         super().__init__(dim, 1.0, torch.bfloat16)
         self.register_buffer("folded_w", torch.empty(0), persistent=False)
         self.register_buffer("folded_b", torch.empty(0), persistent=False)
+        self.register_buffer("packed_w", torch.empty(0), persistent=False)
         self.refold()
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module.refold())
@@ -171,11 +177,12 @@ class FusedCylindricalConvNet(CylindricalConvNet):
         dev = self.layers[0].weight.device
         self.folded_w = w.to(dev)
         self.folded_b = b.to(dev)
+        self.packed_w = pack_cyl_weights(self.folded_w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             raise RuntimeError("FusedCylindricalConvNet is serving-only: "
                                "call .eval() before the forward")
         out = cyl_conv_stack(x.permute(0, 2, 3, 4, 1), self.folded_w,
-                             self.folded_b)                 # [K, 7, 20, 32]
+                             self.folded_b, self.packed_w)  # [K, 7, 20, 32]
         return out.permute(0, 3, 1, 2)

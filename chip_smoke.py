@@ -8,7 +8,10 @@ Phases (any failure raises and exits non-zero):
 2. build every CUDA kernel from ``bufferx_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   its path gives it (taken from a real pair): FPS indices exact,
+   its path gives it (taken from a real pair): FPS indices exact, there and
+   on edge shapes (tied distances across blocks, rounds past the valid
+   count, an all-padded cloud, ragged sizes, 1 and 5 clouds), with the
+   latency floor of its design (the rounds' exchange alone) timed beside it;
    stratified query and cell query bit-exact, moment counts exact and sums
    within |k - p| <= 1e-4 + 1e-5 |p| (f32 summation order); the conv stack
    twice on the path's input: with small random weights (outputs below 1)
@@ -95,6 +98,34 @@ def time_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def fps_edge_cases():
+    """Seeded (name, xyz [B, N, 3] f32, mask [B, N] bool, rounds) for K1.
+    N and the valid counts are chosen against the kernel's ownership of
+    points (8 blocks x 256 threads per cloud)."""
+    rs = np.random.RandomState(11)
+
+    def case(name, n, valid, rounds, grid=False):
+        b = len(valid)
+        if grid:   # integer coordinates, each point many times: exact ties
+            xyz = rs.randint(0, 6, size=(b, n, 3)).astype(np.float32)
+        else:
+            xyz = (rs.randn(b, n, 3) * [1.0, 2.0, 0.5]).astype(np.float32)
+        mask = np.zeros((b, n), bool)
+        for i, v in enumerate(valid):
+            mask[i, :v] = True
+        return name, xyz, mask, rounds
+
+    return [
+        case("duplicated grid points", 30208, (30208, 20000), 600, grid=True),
+        case("300 valid of 1000, 512 rounds", 1000, (300,), 512),
+        case("all padded", 5000, (0, 0), 64),
+        case("N = 12345 (not a multiple of 2048)", 12345, (12345, 7, 9000),
+             300),
+        case("B = 1", 30208, (24000,), 500),
+        case("B = 5", 9000, (9000, 1, 4000, 8999, 100), 200),
+    ]
 
 
 def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs):
@@ -190,8 +221,13 @@ def main() -> int:
     log(f"kernels built in {build_s:.1f} s")
     for k in cuda_build.KERNELS.values():
         for line in k.ptxas_log.splitlines():
+            if "C7519" in line:    # ptxas adds a wgmma fence: information only
+                continue
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{k.name}]: {line.strip()}")
+            if k.name == "conv_stack" and "spill" in line and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in line:
+                raise AssertionError(f"conv_stack spills: {line.strip()}")
 
     # ---- both paths' configurations and the pairs -------------------------
     cfg = make_cfg("ModelNet40").override(patch=dict(desc_mode="moments"))
@@ -233,10 +269,29 @@ def main() -> int:
     if not torch.equal(got, want):
         raise AssertionError(
             f"fps: {int((got != want).sum())} indices differ from the plain version")
+    for label, e_xyz, e_mask, e_k in fps_edge_cases():
+        e_xyz = torch.from_numpy(e_xyz).to(dev)
+        e_mask = torch.from_numpy(e_mask).to(dev)
+        got = fps_mod.farthest_point_sampling_cuda(e_xyz, e_mask, e_k)
+        want = fps_mod.farthest_point_sampling_plain(e_xyz, e_mask, e_k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"fps, {label}: {int((got != want).sum())} indices differ "
+                "from the plain version")
+        log(f"fps, {label}: xyz {list(e_xyz.shape)}, {e_k} rounds, indices "
+            "exact")
     b, n = mask2.shape
     bnd = bound_ms(b * n * 13 + b * k * 4, 9.0 * b * k * n)
+    # the design's latency floor: the same rounds with the exchange between
+    # the cluster's blocks alone (no field update, no argmax)
+    floor_ms = time_ms(torch, lambda: fps_mod.fps_exchange_floor_cuda(
+        xyz2, mask2, k), 5)
+    log(f"fps: latency floor (exchange-only rounds) {floor_ms:.3f} ms, "
+        f"{floor_ms / k * 1e3:.3f} us a round")
     kernels.append(dict(
-        name="fps", match="indices exact", max_abs_err=0.0,
+        name="fps", match="indices exact, also on 6 edge shapes",
+        max_abs_err=0.0, extra=dict(latency_floor_ms=floor_ms),
         ms=time_ms(torch, lambda: fps_mod.farthest_point_sampling_cuda(
             xyz2, mask2, k), 5),
         plain_ms=time_ms(torch, lambda: fps_mod.farthest_point_sampling_plain(
@@ -351,9 +406,11 @@ def main() -> int:
         x5 = torch.amax(models_s.desc.stem(inv), dim=2).reshape(
             kq, statics_s.rad_n, statics_s.ele_n, statics_s.azi_n, 16)
     w5, b5 = models_s.desc.backbone.folded_w, models_s.desc.backbone.folded_b
+    p5 = models_s.desc.backbone.packed_w   # packed once, where the fold ran
 
     def compare_stack(label, w, b):
-        got = conv_pallas.cyl_conv_stack_cuda(x5, w, b)
+        got = conv_pallas.cyl_conv_stack_cuda(
+            x5, w, b, conv_pallas.pack_cyl_weights(w))
         want = conv_pallas.cyl_conv_stack_plain(x5, w, b)
         torch.cuda.synchronize()
         err = (got - want).abs()
@@ -407,7 +464,7 @@ def main() -> int:
                    mean_abs_err_random_weights=float(err_r.mean()),
                    mean_abs_err=float(err.mean())),
         ms=time_ms(torch, lambda: conv_pallas.cyl_conv_stack_cuda(
-            x5, w5, b5), 10),
+            x5, w5, b5, p5), 10),
         plain_ms=time_ms(torch, lambda: conv_pallas.cyl_conv_stack_plain(
             x5, w5, b5), 3),
         library_ms=time_ms(torch, cudnn_stack, 5),

@@ -46,6 +46,7 @@ from bufferx_tpu_torch.kernels.conv_pallas import (
     cyl_conv_stack_cuda,
     cyl_conv_stack_plain,
     fold_cyl_stack,
+    pack_cyl_weights,
 )
 from bufferx_tpu_torch.models.layers import (
     CylindricalConvNet,
@@ -167,3 +168,56 @@ def test_dispatch_and_guards(folds):
         cyl_conv_stack_cuda(x, tw, tb)
     with pytest.raises(ValueError):          # fixed geometry
         cyl_conv_stack_plain(x[:, :2], tw, tb)
+
+
+def _unpack(packed):
+    """Inverse of ``pack_cyl_weights``, written out on its own: walk the
+    packed tiles ``(layer, tap, ci/8, co, 8)`` back into ``[5328, 128]``;
+    the padding lanes the pack drops are zero."""
+    packed = packed.view(torch.int16).numpy()
+    out = np.zeros((5328, 128), np.int16)
+    pos = row = 0
+    for ci, co in CYL_LAYER_CHANNELS:
+        for tap in range(9):
+            tile = packed[pos:pos + ci * co].reshape(ci // 8, co, 8)
+            out[row:row + ci, :co] = tile.transpose(0, 2, 1).reshape(ci, co)
+            pos += ci * co
+            row += ci
+    assert pos == packed.size and row == 5328
+    return out
+
+
+@pytest.mark.parametrize("weights", ["snapshot", "random"])
+def test_pack_is_a_permutation_of_the_fold(folds, weights):
+    _jw, _jb, tw, _tb, _ = folds
+    if weights == "random":
+        rs = np.random.RandomState(5)
+        # where, not a product: the padding lanes must stay +0, not -0
+        tw = torch.from_numpy(np.where(
+            tw.float().numpy() != 0, rs.randn(*tw.shape), 0.0
+        ).astype(np.float32)).to(torch.bfloat16)
+    packed = pack_cyl_weights(tw)
+    assert packed.dtype == torch.bfloat16
+    assert tuple(packed.shape) == (9 * sum(ci * co for ci, co in
+                                           CYL_LAYER_CHANNELS),)
+    # bit for bit: compare the 16-bit patterns, not the values
+    np.testing.assert_array_equal(_unpack(packed),
+                                  tw.view(torch.int16).numpy())
+    with pytest.raises(ValueError):
+        pack_cyl_weights(tw[:, :64])
+
+
+def test_fused_module_packs_on_build_and_load(folds):
+    _jw, _jb, tw, _tb, backbone = folds
+    fused = FusedCylindricalConvNet()
+    assert torch.equal(fused.packed_w, pack_cyl_weights(fused.folded_w))
+    before = fused.packed_w.clone()
+    fused.load_state_dict(backbone, strict=True)
+    assert "packed_w" not in fused.state_dict()
+    assert torch.equal(fused.folded_w, tw)
+    assert torch.equal(fused.packed_w, pack_cyl_weights(tw))
+    assert not torch.equal(fused.packed_w, before)
+    # the packed tensor rides along: the CPU dispatch ignores it
+    x = torch.from_numpy(_inputs(6, k=2))
+    assert torch.equal(cyl_conv_stack(x, tw, fused.folded_b, fused.packed_w),
+                       cyl_conv_stack_plain(x, tw, fused.folded_b))
