@@ -69,7 +69,8 @@ class CudaKernel:
 
     def lib_path(self) -> str:
         h = hashlib.sha256()
-        for part in (self.source, "common.cuh"):
+        headers = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
+        for part in (self.source, *headers):
             with open(os.path.join(_CSRC, part), "rb") as f:
                 h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())

@@ -5,7 +5,9 @@ Counterpart of :mod:`bufferx_tpu.geometry.cylindrical`. Cells are indexed
 :func:`spatial_point_transformer` is the reference "sampled" descriptor's
 input: per cell, the first ``nsample`` in-radius points of each patch in row
 order (kernel K4 on the card, its plain version on the CPU), derotated per
-azimuth column by :func:`var_to_invar`.
+azimuth column by :func:`var_to_invar`. The ``azi_n`` cells of one shell and
+one elevation are consecutive and lie on a circle about the z axis: K4 and
+K3 are told so (``ring_len=azi_n``) and cull by ring before the exact test.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def spatial_point_transformer(patches: torch.Tensor, patches_mask: torch.Tensor,
     then derotated: [K, G, nsample, 3]."""
     cells = torch.as_tensor(grid_cell_centers(rad_n, ele_n, azi_n),
                             device=patches.device)
-    out = spt_cell_query(patches, patches_mask, cells, delta / rad_n, nsample)
+    out = spt_cell_query(patches, patches_mask, cells, delta / rad_n, nsample,
+                         ring_len=azi_n)
     return var_to_invar(out, rad_n, ele_n, azi_n)
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of :mod:`bufferx_tpu.geometry.moments` for the moments-major
 serving layout: :func:`pool_cell_moments` pools the ten raw moments of every
-in-radius patch point per cylinder cell (kernel K3 on the card, its plain
-version on the CPU), and :func:`moments_to_features_mm` derotates them by
-the cell's azimuth and normalizes them into descriptor-net inputs.
+in-radius patch point per cylinder cell (kernel K3 on the card, which first
+culls by rings of ``azi_n`` cells; its plain version on the CPU), and
+:func:`moments_to_features_mm` derotates them by the cell's azimuth and
+normalizes them into descriptor-net inputs.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ def pool_cell_moments(patches: torch.Tensor, patches_mask: torch.Tensor,
         grid_cell_centers(rad_n, ele_n, azi_n), device=patches.device
     )
     radius = delta / rad_n
-    return spt_moments(patches, patches_mask, cells, radius * radius)
+    return spt_moments(patches, patches_mask, cells, radius * radius,
+                       ring_len=azi_n)
 
 
 def moments_to_features_mm(raw: torch.Tensor, rad_n: int, ele_n: int,

@@ -13,7 +13,13 @@ Phases (any failure raises and exits non-zero):
    count, an all-padded cloud, ragged sizes, 1 and 5 clouds), with the
    latency floor of its design (the rounds' exchange alone) timed beside it;
    stratified query and cell query bit-exact, moment counts exact and sums
-   within |k - p| <= 1e-4 + 1e-5 |p| (f32 summation order); the conv stack
+   within |k - p| <= 1e-4 + 1e-5 |p| (f32 summation order), both also on
+   edge shapes (ragged and maximal patch sizes, all points masked, all
+   points in one cell, points at distance r and one ulp either side of it,
+   points on the z axis, 1x1x1 and 2x3x5 grids, 1 and 3001 patches, no
+   ring length given), two moment launches equal to the bit, and the ring
+   cull both share against its plain twin on the patches of all three
+   scales (equal candidate counts per ring, no hit dropped); the conv stack
    twice on the path's input: with small random weights (outputs below 1)
    within 1e-2 absolute and a mean error under 2^-10 of the mean magnitude,
    and with the shipped weights (outputs near 10, where one bf16 step is
@@ -128,6 +134,67 @@ def fps_edge_cases():
     ]
 
 
+def cell_edge_cases(grid_cell_centers):
+    """Seeded (name, patches [K, P, 3] f32, mask [K, P] bool, cells [G, 3],
+    radius, nsample, ring_len) for K3 and K4, chosen against their design:
+    input runs that do and do not qualify for bulk copies (P a multiple of
+    16 or not), output runs likewise, ring batches (P = 3072, no ring
+    length), lists that are empty, full, or decided at the boundary."""
+    rs = np.random.RandomState(13)
+    grid = grid_cell_centers(3, 7, 20)
+    r = 0.8 / 3
+
+    def ball(k, p):
+        v = rs.randn(k, p, 3)
+        v /= np.linalg.norm(v, axis=-1, keepdims=True)
+        return (v * rs.uniform(0, 1, (k, p, 1)) ** (1 / 3)).astype(np.float32)
+
+    def valid(k, p, share=0.9):
+        return rs.uniform(size=(k, p)) < share
+
+    # at distance r, nextafter(r, 0), nextafter(r, inf) from cell centres
+    r32 = np.float32(r)
+    dists = np.array([r32, np.nextafter(r32, np.float32(0)),
+                      np.nextafter(r32, np.float32(np.inf))], np.float64)
+    u = rs.randn(4, 420, 2, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    u[0] = np.eye(3)[None, [0, 2]]             # along x and z
+    boundary = (grid[None, :, None, None, :].astype(np.float64)
+                + u[:, :, :, None, :] * dists[None, None, None, :, None])
+    boundary = boundary.reshape(4, 420 * 6, 3).astype(np.float32)
+    zs = rs.uniform(-1, 1, (3, 512)).astype(np.float32)
+    axis = np.stack([np.zeros_like(zs), np.zeros_like(zs), zs], -1)
+    axis[1, :, 0] = 1e-30
+    axis[2, :, 1] = -1e-7
+    cluster = (grid[rs.randint(0, 420, 6)][:, None, :]
+               + ball(6, 512) * r * 0.9).astype(np.float32)
+    tiny = grid_cell_centers(2, 3, 5)
+    return [
+        ("P = 100", ball(7, 100), valid(7, 100), grid, r, 10, 20),
+        ("P = 101 (runs not 16-byte multiples)", ball(5, 101), valid(5, 101),
+         grid, r, 10, 20),
+        ("P = 3072", ball(5, 3072), valid(5, 3072), grid, r, 10, 20),
+        ("all points masked", ball(4, 512), np.zeros((4, 512), bool), grid,
+         r, 10, 20),
+        ("every point inside one cell", cluster, valid(6, 512), grid, r, 10,
+         20),
+        ("points at r and one ulp either side", boundary,
+         np.ones(boundary.shape[:2], bool), grid, r, 10, 20),
+        ("points on the z axis", axis, np.ones((3, 512), bool), grid, r, 10,
+         20),
+        ("1x1x1 grid", ball(9, 512), valid(9, 512), grid_cell_centers(1, 1, 1),
+         0.8, 10, 1),
+        ("2x3x5 grid", ball(9, 512), valid(9, 512), tiny, 0.4, 10, 5),
+        ("2x3x5 grid, nsample 3 (output runs not 16-byte multiples)",
+         ball(9, 256), valid(9, 256), tiny, 0.4, 3, 5),
+        ("nsample 32", ball(6, 512), valid(6, 512), grid, r, 32, 20),
+        ("K = 1", ball(1, 512), valid(1, 512), grid, r, 10, 20),
+        ("K = 3001", ball(3001, 64), valid(3001, 64), grid, r, 10, 20),
+        ("no ring length given", ball(40, 512), valid(40, 512), grid, r, 10,
+         None),
+    ]
+
+
 def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs):
     """One warm-up, then ``register_pair`` on every pair with the launch
     counts set to 0 just before and read just after; asserts the launches
@@ -225,9 +292,10 @@ def main() -> int:
                 continue
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{k.name}]: {line.strip()}")
-            if k.name == "conv_stack" and "spill" in line and \
+            if k.name in ("conv_stack", "cell_query", "moments") and \
+                    "spill" in line and \
                     "0 bytes spill stores, 0 bytes spill loads" not in line:
-                raise AssertionError(f"conv_stack spills: {line.strip()}")
+                raise AssertionError(f"{k.name} spills: {line.strip()}")
 
     # ---- both paths' configurations and the pairs -------------------------
     cfg = make_cfg("ModelNet40").override(patch=dict(desc_mode="moments"))
@@ -337,15 +405,94 @@ def main() -> int:
                                               statics.azi_n), device=dev)
     radius = statics.delta / statics.rad_n
     r2 = radius * radius
-    got = spt_pallas.spt_moments_cuda(normed, pmask, cells, r2)
+    azi = statics.azi_n
+
+    def check_moments(label, got, want):
+        """Counts exact, sums within 1e-4 + 1e-5 |p|; the largest error."""
+        if not torch.equal(got[:, 9], want[:, 9]):
+            raise AssertionError(f"moments, {label}: "
+                                 f"{int((got[:, 9] != want[:, 9]).sum())} "
+                                 "counts differ from the plain version")
+        err = (got - want).abs()
+        if bool((err > 1e-4 + 1e-5 * want.abs()).any()):
+            raise AssertionError(
+                f"moments, {label}: sums off by up to {float(err.max())}")
+        return float(err.max()) if err.numel() else 0.0
+
+    # the plain versions run without the ring length: no cull on their side
+    got = spt_pallas.spt_moments_cuda(normed, pmask, cells, r2, ring_len=azi)
     want = spt_pallas.spt_moments_plain(normed, pmask, cells, r2)
+    again = spt_pallas.spt_moments_cuda(normed, pmask, cells, r2, ring_len=azi)
     torch.cuda.synchronize()
-    if not torch.equal(got[:, 9], want[:, 9]):
-        raise AssertionError(
-            f"moments: {int((got[:, 9] != want[:, 9]).sum())} counts differ")
-    err = (got - want).abs()
-    if bool((err > 1e-4 + 1e-5 * want.abs()).any()):
-        raise AssertionError(f"moments: sums off by up to {float(err.max())}")
+    moments_err = check_moments("the path's shapes", got, want)
+    if not torch.equal(got, again):
+        raise AssertionError("moments: two launches on the same input differ "
+                             f"in {int((got != again).sum())} entries")
+    log("moments: two launches on the same input give equal bits")
+
+    edge_cases = cell_edge_cases(grid_cell_centers)
+    for label, e_p, e_m, e_c, e_r, e_ns, e_ring in edge_cases:
+        e_p = torch.from_numpy(e_p).to(dev)
+        e_m = torch.from_numpy(e_m).to(dev)
+        e_c = torch.from_numpy(e_c).to(dev)
+        e_err = check_moments(
+            label,
+            spt_pallas.spt_moments_cuda(e_p, e_m, e_c, e_r * e_r,
+                                        ring_len=e_ring),
+            spt_pallas.spt_moments_plain(e_p, e_m, e_c, e_r * e_r, chunk=16))
+        got_q = spt_pallas.spt_cell_query_cuda(e_p, e_m, e_c, e_r, e_ns,
+                                               ring_len=e_ring)
+        want_q = spt_pallas.spt_cell_query_plain(e_p, e_m, e_c, e_r, e_ns,
+                                                 chunk=16)
+        torch.cuda.synchronize()
+        if not torch.equal(got_q, want_q):
+            raise AssertionError(
+                f"cell_query, {label}: "
+                f"{int((got_q != want_q).any(-1).sum())} slots differ from "
+                "the plain version")
+        log(f"moments and cell_query, {label}: patches {list(e_p.shape)}, "
+            f"cells {list(e_c.shape)}, nsample {e_ns}, ring length {e_ring}: "
+            f"counts exact, sums within {e_err:.2e}; slots bit-exact")
+
+    # the ring cull on the card against its plain twin, on every scale's
+    # patches: equal candidate counts per (patch, ring), and no hit dropped
+    cull_pairs = cull_kept = cull_hits = 0
+    kept_by_scale = []
+    for s_i in range(len(pre.src_patches)):
+        pa_s = torch.cat([pre.src_patches[s_i], pre.tgt_patches[s_i]])
+        ma_s = torch.cat([pre.src_pvalid[s_i], pre.tgt_pvalid[s_i]])
+        al_s, _, _ = align_patches(pa_s - kpts[:, None, :], kpts, False)
+        no_s = (al_s / torch.clamp_min(pre.radii[s_i], 1e-3)).contiguous()
+        counts = spt_pallas.ring_candidate_counts_cuda(no_s, ma_s, cells,
+                                                       radius, azi)
+        dropped = 0
+        for i in range(0, no_s.shape[0], 250):
+            pa_c, ma_c = no_s[i:i + 250], ma_s[i:i + 250]
+            cand = spt_pallas.ring_candidates_plain(pa_c, ma_c, cells, radius,
+                                                    azi)
+            if not torch.equal(cand.sum(-1).to(torch.int32),
+                               counts[i:i + 250]):
+                raise AssertionError(
+                    f"ring cull, scale {s_i}: the kernel's candidate counts "
+                    "differ from the plain twin's")
+            hit = spt_pallas.in_radius(pa_c, cells, r2) & ma_c[:, None, :]
+            dropped += int((hit & ~cand.repeat_interleave(azi, dim=1)).sum())
+            cull_hits += int(hit.sum())
+        if dropped:
+            raise AssertionError(f"ring cull, scale {s_i}: {dropped} hits "
+                                 "are no candidates of their ring")
+        kept = int(counts.sum()) * azi
+        cull_kept += kept
+        kept_by_scale.append(kept)
+        cull_pairs += no_s.shape[0] * no_s.shape[1] * cells.shape[0]
+        log(f"ring cull, scale {s_i}: candidate counts equal the twin's on "
+            f"{counts.numel()} (patch, ring) lists, 0 hits dropped, keeps "
+            f"{kept / (no_s.shape[0] * no_s.shape[1] * cells.shape[0]):.4f} "
+            "of the point-cell pairs")
+    cull_extra = dict(cull_kept_share=cull_kept / cull_pairs,
+                      hit_share=cull_hits / cull_pairs)
+    log(f"ring cull: keeps {cull_extra['cull_kept_share']:.4f} of the pairs "
+        f"of the three scales; {cull_extra['hit_share']:.4f} are hits")
 
     def cdist_bmm():
         ok = (torch.cdist(cells[None].expand(normed.shape[0], -1, -1),
@@ -353,48 +500,53 @@ def main() -> int:
         psi = spt_pallas.point_moment_features(normed, pmask)
         return torch.bmm(ok, psi).transpose(1, 2)
 
+    # Operations of K3 and K4 for the bound: what the function needs on this
+    # input, not the 9 flops a pair of a brute-force walk. Per valid point its
+    # rho (4), per point and ring the 2-D test (6), per pair the cull keeps
+    # at scale 0 (these patches) the exact test (9); K3 adds 16 a hit. K4
+    # stops at a cell's 10th hit and needs fewer exact tests than are
+    # counted; bytes decide either way.
     kq, p = pmask.shape
     g = cells.shape[0]
     hits = float(want[:, 9].sum())
+    cull_ops = 4.0 * float(pmask.sum()) + 6.0 * kq * p * (g // azi) \
+        + 9.0 * kept_by_scale[0]
     kernels.append(dict(
-        name="moments", match="counts exact, sums within 1e-4 + 1e-5|p|",
-        max_abs_err=float(err.max()),
+        name="moments",
+        match="counts exact, sums within 1e-4 + 1e-5|p|, also on "
+              f"{len(edge_cases)} edge shapes; two launches equal bits",
+        max_abs_err=moments_err,
+        extra=cull_extra,
         ms=time_ms(torch, lambda: spt_pallas.spt_moments_cuda(
-            normed, pmask, cells, r2), 10),
+            normed, pmask, cells, r2, ring_len=azi), 10),
         plain_ms=time_ms(torch, lambda: spt_pallas.spt_moments_plain(
             normed, pmask, cells, r2), 3),
         library_ms=time_ms(torch, cdist_bmm, 5),
         bound=bound_ms(kq * p * 13 + g * 12 + kq * 10 * g * 4,
-                       9.0 * kq * g * p + 16.0 * hits),
+                       cull_ops + 16.0 * hits),
         shapes=f"patches {list(normed.shape)} -> {list(got.shape)}",
     ))
 
     # K4: the same patches, the sampled path's cell query
     ns = statics_s.voxel_sample
-    got = spt_pallas.spt_cell_query_cuda(normed, pmask, cells, radius, ns)
+    got = spt_pallas.spt_cell_query_cuda(normed, pmask, cells, radius, ns,
+                                         ring_len=azi)
     want = spt_pallas.spt_cell_query_plain(normed, pmask, cells, radius, ns)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(
             f"cell_query: {int((got != want).any(-1).sum())} slots differ")
-    # tests this data needs: per (patch, cell), up to its ns-th hit in row
-    # order, or every point when it has fewer hits
-    tests = 0
-    for i in range(0, kq, 250):
-        hit = spt_pallas.in_radius(normed[i:i + 250], cells, r2) \
-            & pmask[i:i + 250, None, :]
-        reached = (torch.cumsum(hit.to(torch.int32), -1) >= ns).to(
-            torch.int32)
-        tests += int(torch.where(reached.any(-1), reached.argmax(-1) + 1,
-                                 p).sum())
     kernels.append(dict(
-        name="cell_query", match="bit-exact", max_abs_err=0.0,
+        name="cell_query",
+        match=f"bit-exact, also on {len(edge_cases)} edge shapes",
+        max_abs_err=0.0,
+        extra=cull_extra,
         ms=time_ms(torch, lambda: spt_pallas.spt_cell_query_cuda(
-            normed, pmask, cells, radius, ns), 20),
+            normed, pmask, cells, radius, ns, ring_len=azi), 20),
         plain_ms=time_ms(torch, lambda: spt_pallas.spt_cell_query_plain(
             normed, pmask, cells, radius, ns), 3),
         library_ms=None,
-        bound=bound_ms(kq * p * 13 + g * 12 + got.numel() * 4, 9.0 * tests),
+        bound=bound_ms(kq * p * 13 + g * 12 + got.numel() * 4, cull_ops),
         shapes=f"patches {list(normed.shape)} -> {list(got.shape)}",
     ))
 

@@ -51,11 +51,11 @@ def _jax_query(patches, mask, cells, radius, ns):
     )(jnp.asarray(patches), jnp.asarray(mask)))
 
 
-def _port_query(patches, mask, cells, radius, ns):
+def _port_query(patches, mask, cells, radius, ns, ring_len=None):
     return spt_cell_query_plain(torch.from_numpy(patches),
                                 torch.from_numpy(mask),
                                 torch.from_numpy(np.asarray(cells)),
-                                radius, ns).numpy()
+                                radius, ns, ring_len=ring_len).numpy()
 
 
 def _assert_rows_match(got, want):
@@ -76,6 +76,39 @@ def test_query_matches_jax_and_pallas(p, seed):
     mask[:, p - 28:] = False
     got = _port_query(patches, mask, cells, RADIUS, NS)
     assert got.shape == (k, RAD * ELE * AZI, NS, 3)
+    _assert_rows_match(got, _jax_query(patches, mask, cells, RADIUS, NS))
+    pallas = np.asarray(spt_cell_query_pallas(
+        jnp.asarray(patches), jnp.asarray(mask), jnp.asarray(cells), RADIUS,
+        NS, interpret=True))
+    _assert_rows_match(got, pallas)
+
+
+@pytest.mark.parametrize("grid,ring_len", [((3, 7, 20), 20), ((3, 7, 20), 1),
+                                           ((3, 7, 20), 140), ((2, 3, 5), 5),
+                                           ((1, 1, 1), 1)])
+def test_ring_keyword_changes_nothing(grid, ring_len):
+    """The plain version checks ``ring_len`` and runs no cull: the same bits
+    with and without it (tolerance 0)."""
+    rs = np.random.RandomState(6)
+    cells = grid_cell_centers(*grid)
+    patches = (rs.randn(4, 256, 3) * 0.4).astype(np.float32)
+    mask = rs.uniform(size=(4, 256)) < 0.9
+    radius = DELTA / grid[0]
+    want = _port_query(patches, mask, cells, radius, NS)
+    assert np.abs(want).sum() > 0
+    np.testing.assert_array_equal(
+        _port_query(patches, mask, cells, radius, NS, ring_len), want)
+
+
+def test_query_with_ring_keyword_matches_jax_and_pallas():
+    """As the sampled path calls it (``ring_len=azi_n``), against the f32
+    JAX path and the Pallas kernel in interpret mode."""
+    rs = np.random.RandomState(7)
+    k, p = 3, 256
+    cells = grid_cell_centers(RAD, ELE, AZI)
+    patches = (rs.randn(k, p, 3) * 0.4).astype(np.float32)
+    mask = rs.uniform(size=(k, p)) < 0.9
+    got = _port_query(patches, mask, cells, RADIUS, NS, ring_len=AZI)
     _assert_rows_match(got, _jax_query(patches, mask, cells, RADIUS, NS))
     pallas = np.asarray(spt_cell_query_pallas(
         jnp.asarray(patches), jnp.asarray(mask), jnp.asarray(cells), RADIUS,
@@ -157,3 +190,9 @@ def test_dispatch_and_guards():
         spt_cell_query_cuda(patches, mask, cells, RADIUS, NS)
     with pytest.raises(ValueError, match="nsample"):
         spt_cell_query_cuda(patches, mask, cells, RADIUS, 33)
+    # the ring length must divide the number of cells, on every entry
+    for fn in (spt_cell_query, spt_cell_query_plain, spt_cell_query_cuda):
+        with pytest.raises(ValueError, match="multiple of the ring"):
+            fn(patches, mask, cells, RADIUS, NS, ring_len=AZI + 3)
+    np.testing.assert_array_equal(
+        spt_cell_query(patches, mask, cells, RADIUS, NS, ring_len=AZI), out)

@@ -26,6 +26,7 @@ from bufferx_tpu_torch.geometry.spt_pallas import (
     point_moment_features,
     spt_moments,
     spt_moments_cuda,
+    spt_moments_plain,
 )
 
 RAD, ELE, AZI, DELTA = 3, 7, 20, 0.8
@@ -91,6 +92,48 @@ def test_pool_matches_pallas_interpret():
                            True))
 
 
+@pytest.mark.parametrize("grid,ring_len", [((3, 7, 20), 20), ((3, 7, 20), 1),
+                                           ((3, 7, 20), 140), ((2, 3, 5), 5),
+                                           ((1, 1, 1), 1)])
+def test_ring_keyword_changes_nothing(grid, ring_len):
+    """The plain version checks ``ring_len`` and runs no cull: the same bits
+    with and without it (tolerance 0)."""
+    pts, mask = _patches(6, k=6)
+    cells = torch.from_numpy(grid_cell_centers(*grid))
+    r2 = (DELTA / grid[0]) ** 2
+    want = spt_moments_plain(torch.from_numpy(pts), torch.from_numpy(mask),
+                             cells, r2)
+    got = spt_moments_plain(torch.from_numpy(pts), torch.from_numpy(mask),
+                            cells, r2, ring_len=ring_len)
+    assert float(want[:, 9].sum()) > 0
+    assert torch.equal(got, want)
+
+
+def test_pool_is_called_with_the_ring_keyword(monkeypatch):
+    """``pool_cell_moments`` tells the kernel wrapper the ring length (the
+    grid's ``azi_n``), and the result still matches the f32 JAX path."""
+    seen = {}
+    real = tmom.spt_moments
+
+    def spy(*args, **kwargs):
+        seen.update(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tmom, "spt_moments", spy)
+    pts, mask = _patches(7, k=4)
+    got = tmom.pool_cell_moments(torch.from_numpy(pts), torch.from_numpy(mask),
+                                 RAD, ELE, AZI, DELTA).numpy()
+    assert seen == {"ring_len": AZI}
+    want = np.asarray(jmom.pool_cell_moments(
+        jnp.asarray(pts), jnp.asarray(mask), RAD, ELE, AZI, DELTA,
+        moments_major=True,
+    ))
+    same = (got[:, 9] == want[:, 9])[:, None, :]
+    assert same.mean() > 1 - FLIP_RATE_BOUND * pts.shape[1]
+    np.testing.assert_allclose(np.where(same, got, 0), np.where(same, want, 0),
+                               rtol=0, atol=1e-5)
+
+
 def test_features_mm_match_jax():
     pts, mask = _patches(4)
     raw = tmom.pool_cell_moments(torch.from_numpy(pts), torch.from_numpy(mask),
@@ -109,3 +152,11 @@ def test_dispatch_and_guards():
     with pytest.raises(ValueError):   # kernel wrapper: CUDA tensors only
         spt_moments_cuda(torch.from_numpy(pts), torch.from_numpy(mask),
                          cells, 0.07)
+    # the ring length must divide the number of cells, on every entry
+    for fn in (spt_moments, spt_moments_plain, spt_moments_cuda):
+        with pytest.raises(ValueError, match="multiple of the ring"):
+            fn(torch.from_numpy(pts), torch.from_numpy(mask), cells, 0.07,
+               ring_len=AZI + 3)
+    assert torch.equal(
+        spt_moments(torch.from_numpy(pts), torch.from_numpy(mask), cells,
+                    0.07, ring_len=AZI), out)
