@@ -17,12 +17,15 @@ import math
 
 import torch
 
+from bufferx_tpu_torch.device import constant
+
 __all__ = [
     "eigh3x3",
     "smallest_eigvec_3x3",
     "kabsch",
     "rodrigues_a_to_b",
     "quaternion_to_rotation",
+    "take_rows",
 ]
 
 _EPS = 1e-12
@@ -30,6 +33,12 @@ _EPS = 1e-12
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True), _EPS)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-batch row gather: x [B, N, ...], idx [B, M] -> [B, M, ...]."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, idx]
 
 
 def eigh3x3(A: torch.Tensor):
@@ -172,8 +181,8 @@ def rodrigues_a_to_b(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     s2 = torch.sum(c * c, dim=-1)
     cos = torch.clamp(torch.sum(a * b, dim=-1), -1.0, 1.0)
 
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
+    ex = constant((1.0, 0.0, 0.0), a.dtype, a.device)
+    ey = constant((0.0, 1.0, 0.0), a.dtype, a.device)
     alt = _unit(torch.linalg.cross(
         a, torch.where(torch.abs(a[..., :1]) < 0.9, ex, ey)
     ))

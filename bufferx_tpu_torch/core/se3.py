@@ -8,7 +8,22 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["integrate", "compute_rte", "compute_rre", "rotation_z"]
+from bufferx_tpu_torch.device import constant
+
+__all__ = ["transform", "decompose", "integrate", "compute_rte",
+           "compute_rre", "rotation_z"]
+
+
+def transform(pts: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """Apply an SE(3) transform, ``R @ p + t``: pts [..., N, 3], trans
+    [..., 4, 4]."""
+    R, t = decompose(trans)
+    return torch.matmul(pts, R.transpose(-1, -2)) + t[..., None, :]
+
+
+def decompose(trans: torch.Tensor):
+    """[..., 4, 4] -> (R [..., 3, 3], t [..., 3])."""
+    return trans[..., :3, :3], trans[..., :3, 3]
 
 
 def integrate(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -17,8 +32,8 @@ def integrate(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    bottom = constant((0.0, 0.0, 0.0, 1.0), R.dtype,
+                      R.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -12,6 +12,7 @@ K3 are told so (``ring_len=azi_n``) and cull by ring before the exact test.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -20,7 +21,8 @@ import torch
 from bufferx_tpu_torch.core.se3 import rotation_z
 from bufferx_tpu_torch.geometry.spt_pallas import spt_cell_query
 
-__all__ = ["grid_cell_centers", "spatial_point_transformer", "var_to_invar"]
+__all__ = ["grid_cell_centers", "grid_cells_on", "spatial_point_transformer",
+           "var_to_invar"]
 
 
 def grid_cell_centers(rad_n: int, ele_n: int, azi_n: int) -> np.ndarray:
@@ -37,6 +39,20 @@ def grid_cell_centers(rad_n: int, ele_n: int, azi_n: int) -> np.ndarray:
     return (shells * on_sphere[None]).reshape(-1, 3).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_cells_on(rad_n: int, ele_n: int, azi_n: int,
+                   device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(grid_cell_centers(rad_n, ele_n, azi_n),
+                           device=device)
+
+
+def grid_cells_on(rad_n: int, ele_n: int, azi_n: int, device) -> torch.Tensor:
+    """:func:`grid_cell_centers` as a tensor on ``device``, copied there once
+    and kept (a host-to-device copy waits for the stream's queued work). Do
+    not write to the result."""
+    return _grid_cells_on(rad_n, ele_n, azi_n, torch.device(device))
+
+
 def spatial_point_transformer(patches: torch.Tensor, patches_mask: torch.Tensor,
                               rad_n: int, ele_n: int, azi_n: int,
                               delta: float, nsample: int) -> torch.Tensor:
@@ -44,8 +60,7 @@ def spatial_point_transformer(patches: torch.Tensor, patches_mask: torch.Tensor,
     [K, P, 3] within ``delta / rad_n`` of each cell centre, in row order
     (rows arrive shuffled, so this is a uniform random subset), zero-filled,
     then derotated: [K, G, nsample, 3]."""
-    cells = torch.as_tensor(grid_cell_centers(rad_n, ele_n, azi_n),
-                            device=patches.device)
+    cells = grid_cells_on(rad_n, ele_n, azi_n, patches.device)
     out = spt_cell_query(patches, patches_mask, cells, delta / rad_n, nsample,
                          ring_len=azi_n)
     return var_to_invar(out, rad_n, ele_n, azi_n)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from bufferx_tpu_torch.core.linalg import rodrigues_a_to_b, smallest_eigvec_3x3
+from bufferx_tpu_torch.device import constant
 
 __all__ = ["compute_z_axis", "align_patches"]
 
@@ -32,11 +33,11 @@ def align_patches(delta: torch.Tensor, kpts: torch.Tensor,
     k = delta.shape[0]
     if is_aligned_to_global_z:
         R = torch.eye(3, dtype=delta.dtype, device=delta.device).expand(k, 3, 3)
-        rand = torch.tensor([1.0, 0.0, 0.0], dtype=delta.dtype,
-                            device=delta.device).expand(k, 3)
+        rand = constant((1.0, 0.0, 0.0), delta.dtype,
+                        delta.device).expand(k, 3)
         return delta, rand, R
-    z_hat = torch.tensor([0.0, 0.0, 1.0], dtype=delta.dtype,
-                         device=delta.device).expand(k, 3)
+    z_hat = constant((0.0, 0.0, 1.0), delta.dtype,
+                     delta.device).expand(k, 3)
     z = compute_z_axis(delta, kpts)
     R = rodrigues_a_to_b(z, z_hat)
     aligned = torch.matmul(delta, R)

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from bufferx_tpu_torch.geometry.cylindrical import grid_cell_centers
+from bufferx_tpu_torch.geometry.cylindrical import grid_cells_on
 from bufferx_tpu_torch.geometry.spt_pallas import NUM_MOMENTS, spt_moments
 
 __all__ = ["NUM_MOMENTS", "pool_cell_moments", "moments_to_features_mm"]
@@ -26,9 +26,7 @@ def pool_cell_moments(patches: torch.Tensor, patches_mask: torch.Tensor,
     """Raw per-cell moments [K, 10, G] (moments-major) over ALL in-radius
     points of the normalized (unit-radius) patches [K, P, 3]; the ball
     radius is ``delta / rad_n``."""
-    cells = torch.as_tensor(
-        grid_cell_centers(rad_n, ele_n, azi_n), device=patches.device
-    )
+    cells = grid_cells_on(rad_n, ele_n, azi_n, patches.device)
     radius = delta / rad_n
     return spt_moments(patches, patches_mask, cells, radius * radius,
                        ring_len=azi_n)
@@ -69,8 +67,7 @@ def moments_to_features_mm(raw: torch.Tensor, rad_n: int, ele_n: int,
     zz_r = szz
 
     # canonical cell centres: R_z(angle_a) @ centre, per cell
-    centers = torch.as_tensor(grid_cell_centers(rad_n, ele_n, azi_n),
-                              device=dev)
+    centers = grid_cells_on(rad_n, ele_n, azi_n, dev)
     cg, sg = ca[0], sa[0]
     canon_x = cg * centers[:, 0] - sg * centers[:, 1]
     canon_y = sg * centers[:, 0] + cg * centers[:, 1]

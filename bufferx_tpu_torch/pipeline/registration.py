@@ -1,40 +1,53 @@
-"""End-to-end zero-shot pair registration (single pair, all scales).
+"""End-to-end zero-shot registration: single pairs and batched serving.
 
-Counterpart of ``register_pair_jit`` -> ``_register_impl`` in
-:mod:`bufferx_tpu.pipeline.registration`, run eagerly in PyTorch:
+Counterpart of :mod:`bufferx_tpu.pipeline.registration`, run eagerly in
+PyTorch. There is one implementation, written for a batch of B pairs (the
+JAX package maps its single-pair program over the batch with ``vmap``; here
+the pair dimension is written out), and :func:`register_pair` is the batch
+of one:
 
-1. :func:`_precompute`: one FPS per cloud (kernel K1, both clouds in one
-   launch) gives the radius probes and, as their prefix, the keypoints; the
-   centroid-centred f32 distance matrices; density-aware radii; and every
-   scale's stratified patch selection in one pass over each matrix
-   (kernel K2).
-2. :func:`_scale_candidates`, once per scale (unrolled): LRF alignment, the
-   SPT features (moment pooling, kernel K3, and derotation in "moments"
-   mode; the cell query, kernel K4, and derotation in "sampled" mode), the
+1. :func:`_precompute`: one FPS launch for all 2B clouds (kernel K1) gives
+   the radius probes and, as their prefix, the keypoints; the
+   centroid-centred f32 distance matrices; density-aware radii per pair; and
+   the stratified patch selection of every scale asked for, for all clouds,
+   in one launch over the matrices (kernel K2).
+2. :func:`_scale_candidates`, once per scale: LRF alignment, the SPT
+   features (moment pooling, kernel K3, and derotation in "moments" mode;
+   the cell query, kernel K4, and derotation in "sampled" mode) over all
+   2 B num_fps patches at once with the radius a per-patch divisor, the
    descriptor net (its backbone the fused conv stack, kernel K5, when
-   ``fused_conv``), mutual matching, the matched-equi gather (rounded
-   through bf16 when ``mxu_gather``, as the JAX one-hot product rounds),
-   the cost-volume head and SO(2) pose candidates.
+   ``fused_conv``), mutual matching per pair, the matched-equi gather
+   (rounded through bf16 when ``mxu_gather``, as the JAX one-hot product
+   rounds), the cost-volume head and SO(2) pose candidates.
 3. :func:`_pool_and_solve`: cross-scale consensus, the sampling-pool
-   policy, RANSAC with a weighted-Kabsch refit.
+   policy, RANSAC with a weighted-Kabsch refit or GNC-TLS, and optionally
+   IRLS refinement, each with a leading pair dimension.
+
+Nothing between the entry point and the result reads a value back to the
+host, so a batch is one uninterrupted stream of launches.
+:func:`register_pairs_batched` is two-phase serving on top of that: scale 0
+for every batch, then all scales for the pairs whose scale-0 solve was not
+confident; its only host read is one transfer of the inlier counts per batch.
 
 Random draws are explicit (:class:`Draws`): the strip offsets of the
 stratified query and the RANSAC rank draws. By default they come from a
 ``torch.Generator``; a test can pass the JAX package's draws instead.
-Options that the JAX package has but this slice does not port (batched and
-early-exit serving, GNC, IRLS refinement, other patch queries, the softmax
-pool, scale-vmapped or scale-batched convs) raise ``NotImplementedError``.
+Options that the JAX package has but the port does not yet (the clutter
+prefilter, other patch queries, the softmax pool, scale-vmapped or
+scale-batched convs) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import time
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from bufferx_tpu_torch.config import Config
+from bufferx_tpu_torch.core.linalg import take_rows
 from bufferx_tpu_torch.device import resolve_device
 from bufferx_tpu_torch.geometry.cylindrical import spatial_point_transformer
 from bufferx_tpu_torch.geometry.lrf import align_patches
@@ -52,6 +65,8 @@ from bufferx_tpu_torch.kernels.strat_pallas import (
 from bufferx_tpu_torch.models.heads import CostVolume
 from bufferx_tpu_torch.models.spinnet import MiniSpinNet
 from bufferx_tpu_torch.solver.consensus import cross_scale_consensus
+from bufferx_tpu_torch.solver.gnc import gnc_tls_solve
+from bufferx_tpu_torch.solver.irls import post_refinement
 from bufferx_tpu_torch.solver.ransac import draw_ranks, ransac_pose
 from bufferx_tpu_torch.solver.so2 import so2_pose_candidates
 
@@ -64,25 +79,38 @@ __all__ = [
     "build_models",
     "make_draws",
     "prepare_cloud",
+    "stack_clouds",
+    "stack_draws",
     "register_pair",
+    "register_pair_early_exit",
+    "register_pair_timed",
+    "register_pairs_batched",
 ]
+
+# the sampled mode's point stem holds [K, G, voxel_sample, 16] f32 several
+# times over: its descriptor net runs over at most this many patches a call
+# (one pair, or a batch of 2, is one call; a batch of 8 is 4 calls a scale)
+SAMPLED_DESC_CHUNK = 6000
 
 
 class Cloud(NamedTuple):
+    """One padded cloud, or with a leading B a stack of them."""
     xyz: torch.Tensor    # [N, 3] f32, padded
     mask: torch.Tensor   # [N] bool
 
 
 class RegistrationResult(NamedTuple):
+    """One pair's result, or with a leading B a batch's."""
     pose: torch.Tensor            # [4, 4]
     num_inliers: torch.Tensor     # solver inliers
-    num_mutual: torch.Tensor      # mutual matches over all scales
+    num_mutual: torch.Tensor      # mutual matches over the scales used
     num_consensus: torch.Tensor   # consensus inlier count
-    scales_used: int
+    scales_used: torch.Tensor     # int64
     valid: torch.Tensor           # bool
 
 
 class Draws(NamedTuple):
+    """One pair's random draws, or with a leading B a batch's."""
     strat_src: torch.Tensor   # [num_fps, patch_sample] int in [0, N/S)
     strat_tgt: torch.Tensor   # [num_fps, patch_sample]
     ransac: torch.Tensor      # [num_hypotheses, 3] int in [0, 2^30)
@@ -118,9 +146,12 @@ class PipelineStatics:
     similar_th: float
     pose_estimator: str
     pose_refine: bool
+    irls_iters: int
     num_hypotheses: int
     ransac_chunk: int
     enable_early_exit: bool
+    early_exit_min_inliers: int
+    kiss_resolution: float
     desc_mode: str
     desc_pool: str
     desc_width: float
@@ -156,9 +187,12 @@ class PipelineStatics:
             similar_th=m.similar_th,
             pose_estimator=m.pose_estimator,
             pose_refine=cfg.test.pose_refine,
+            irls_iters=c.irls_iters,
             num_hypotheses=c.num_ransac_hypotheses,
             ransac_chunk=c.ransac_chunk,
             enable_early_exit=m.enable_early_exit,
+            early_exit_min_inliers=m.early_exit_min_inliers,
+            kiss_resolution=m.kiss_resolution,
             desc_mode=p.desc_mode,
             desc_pool=p.desc_pool,
             desc_width=p.desc_width,
@@ -175,14 +209,10 @@ class PipelineStatics:
 
 
 def _check_ported(s: PipelineStatics) -> None:
-    """Raise on options this slice of the port does not implement."""
+    """Raise on options the port does not implement yet."""
     missing = []
-    if s.pose_estimator != "ransac":
-        missing.append(f"pose_estimator={s.pose_estimator!r} (GNC)")
-    if s.pose_refine:
-        missing.append("pose_refine=True (IRLS)")
-    if s.enable_early_exit:
-        missing.append("enable_early_exit=True")
+    if s.pose_estimator not in ("ransac", "gnc"):
+        missing.append(f"pose_estimator={s.pose_estimator!r}")
     if s.clutter_filter:
         missing.append("clutter_filter=True (density prefilter)")
     if s.desc_mode not in ("moments", "sampled") or s.desc_pool != "gated":
@@ -238,84 +268,103 @@ def prepare_cloud(xyz: np.ndarray, cfg: Config, seed: int = 0,
 
 
 def make_draws(statics: PipelineStatics, generator: torch.Generator,
-               device) -> Draws:
-    """Strip offsets for both clouds and RANSAC rank draws."""
+               device, batch: int | None = None) -> Draws:
+    """Strip offsets for both clouds and RANSAC rank draws: one pair's, or
+    with ``batch`` those of a batch (a leading ``batch`` on each)."""
     l = statics.max_points // statics.patch_sample
-    shape = (statics.num_fps, statics.patch_sample)
+    lead = () if batch is None else (batch,)
+    shape = lead + (statics.num_fps, statics.patch_sample)
 
     def offsets():
         return torch.randint(0, l, shape, generator=generator,
                              device=generator.device,
                              dtype=torch.int32).to(device)
 
-    return Draws(offsets(), offsets(),
-                 draw_ranks(statics.num_hypotheses, generator, device))
+    ranks = draw_ranks(statics.num_hypotheses, generator, device,
+                       batch=1 if batch is None else batch)
+    return Draws(offsets(), offsets(), ranks[0] if batch is None else ranks)
+
+
+def stack_clouds(clouds: Sequence[Cloud]) -> Cloud:
+    """[Cloud, ...] -> Cloud with a leading batch dimension."""
+    return Cloud(torch.stack([c.xyz for c in clouds]),
+                 torch.stack([c.mask for c in clouds]))
+
+
+def stack_draws(draws: Sequence[Draws]) -> Draws:
+    """[Draws, ...] of single pairs -> Draws with a leading batch dimension."""
+    return Draws(*(torch.stack(xs) for xs in zip(*draws)))
 
 
 class _Shared(NamedTuple):
-    src_kpts: torch.Tensor      # [nf, 3]
-    tgt_kpts: torch.Tensor
-    src_kpts_v: torch.Tensor    # [nf]
-    tgt_kpts_v: torch.Tensor
-    d2_src: torch.Tensor        # [num_probe, N]
-    d2_tgt: torch.Tensor
-    radii: torch.Tensor         # [num_scales]
-    src_patches: torch.Tensor   # [R, nf, S, 3]
-    src_pvalid: torch.Tensor    # [R, nf, S]
-    tgt_patches: torch.Tensor
-    tgt_pvalid: torch.Tensor
+    """Scale-independent precomputation of a batch of B pairs. The 2B clouds
+    are stacked sources first: cloud b is pair b's source, cloud B + b its
+    target."""
+    kpts: torch.Tensor      # [2B, nf, 3]
+    kpts_v: torch.Tensor    # [2B, nf]
+    d2: torch.Tensor        # [2B, num_probe, N]
+    radii: torch.Tensor     # [B, num_scales]
+    patches: torch.Tensor   # [2B, R, nf, S, 3], R = the scales asked for
+    pvalid: torch.Tensor    # [2B, R, nf, S]
 
 
 class _Candidates(NamedTuple):
-    ss: torch.Tensor     # [K, 3] src keypoints
-    tt: torch.Tensor     # [K, 3] matched tgt keypoints
-    Rc: torch.Tensor     # [K, 3, 3]
-    tc: torch.Tensor     # [K, 3]
-    valid: torch.Tensor  # [K] mutual-match bits
-    d2: torch.Tensor     # [K] descriptor match distance
+    ss: torch.Tensor     # [B, K, 3] src keypoints
+    tt: torch.Tensor     # [B, K, 3] matched tgt keypoints
+    Rc: torch.Tensor     # [B, K, 3, 3]
+    tc: torch.Tensor     # [B, K, 3]
+    valid: torch.Tensor  # [B, K] mutual-match bits
+    d2: torch.Tensor     # [B, K] descriptor match distance
+
+
+def _cat_candidates(cands: list) -> _Candidates:
+    return _Candidates(*(torch.cat(xs, dim=1) for xs in zip(*cands)))
 
 
 def _centroid(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    w = mask.to(torch.float32)[:, None]
-    return torch.sum(xyz * w, dim=0) / torch.clamp_min(torch.sum(w), 1.0)
+    w = mask.to(torch.float32)[..., None]
+    return torch.sum(xyz * w, dim=-2) / torch.clamp_min(torch.sum(w, dim=-2),
+                                                        1.0)
 
 
 def _precompute(statics: PipelineStatics, src: Cloud, tgt: Cloud,
-                draws: Draws) -> _Shared:
-    idx, v = fps(torch.stack([src.xyz, tgt.xyz]),
-                 torch.stack([src.mask, tgt.mask]), statics.num_probe)
-    s_probe, t_probe = src.xyz[idx[0]], tgt.xyz[idx[1]]
-    s_v, t_v = v[0], v[1]
+                draws: Draws, scales: tuple) -> _Shared:
+    """src/tgt: stacked clouds [B, N, 3]; draws with a leading B; ``scales``:
+    the radius indices whose patches are selected."""
+    b = src.xyz.shape[0]
+    xyz = torch.cat([src.xyz, tgt.xyz])                          # [2B, N, 3]
+    mask = torch.cat([src.mask, tgt.mask])
+    idx, v = fps(xyz, mask, statics.num_probe)
+    probe = take_rows(xyz, idx)                                  # [2B, P, 3]
 
     # distances are translation-invariant: centre on the valid centroid
     # first, which keeps the f32 expansion's cancellation error small
-    c_src = _centroid(src.xyz, src.mask)
-    c_tgt = _centroid(tgt.xyz, tgt.mask)
-    d2_src = masked_sqdist(s_probe - c_src, src.xyz - c_src, s_v, src.mask)
-    d2_tgt = masked_sqdist(t_probe - c_tgt, tgt.xyz - c_tgt, t_v, tgt.mask)
+    cen = _centroid(xyz, mask)[:, None, :]
+    d2 = masked_sqdist(probe - cen, xyz - cen, v, mask)          # [2B, P, N]
 
-    # density-aware radii from the denser cloud (or the sparser one)
-    denser_src = src.mask.sum() > tgt.mask.sum()
+    # density-aware radii per pair from its denser cloud (or its sparser
+    # one), read off the contiguous 1/subsample column prefix: the prefix is
+    # cut here, so that only a quarter of the chosen matrix is copied
+    n_valid = mask.sum(dim=1)
+    denser_src = n_valid[:b] > n_valid[b:]
     use_src = ~denser_src if statics.radius_source == "sparser" else denser_src
+    pairs = torch.arange(b, device=xyz.device)
+    chosen = torch.where(use_src, pairs, pairs + b)              # cloud index
+    sub = statics.radius_subsample
+    keep = xyz.shape[1] // sub if sub > 1 else xyz.shape[1]
     radii = density_aware_radius_from_d2(
-        torch.where(use_src, d2_src, d2_tgt),
-        torch.where(use_src, src.mask, tgt.mask),
-        torch.where(use_src, s_v, t_v),
-        thresholds=statics.thresholds, max_r=statics.radius_max,
-        subsample=statics.radius_subsample,
-    )
+        d2[chosen, :, :keep], mask[chosen, :keep], v[chosen],
+        thresholds=statics.thresholds, max_r=statics.radius_max, subsample=1,
+    )                                                            # [B, T]
     nf = statics.num_fps
-    radii_used = torch.clamp_min(radii, 1e-3)
-    sp, sv = ball_query_stratified_multi(
-        src.xyz, src.mask, s_probe[:nf], radii_used, draws.strat_src,
-        statics.patch_sample, d2_src[:nf],
+    radii_used = torch.clamp_min(
+        torch.stack([radii[:, s] for s in scales], dim=1), 1e-3)  # [B, R]
+    patches, pvalid = ball_query_stratified_multi(
+        xyz, mask, probe[:, :nf], torch.cat([radii_used, radii_used]),
+        torch.cat([draws.strat_src, draws.strat_tgt]), statics.patch_sample,
+        d2[:, :nf],
     )
-    tp, tv = ball_query_stratified_multi(
-        tgt.xyz, tgt.mask, t_probe[:nf], radii_used, draws.strat_tgt,
-        statics.patch_sample, d2_tgt[:nf],
-    )
-    return _Shared(s_probe[:nf], t_probe[:nf], s_v[:nf], t_v[:nf],
-                   d2_src, d2_tgt, radii, sp, sv, tp, tv)
+    return _Shared(probe[:, :nf], v[:, :nf], d2, radii, patches, pvalid)
 
 
 def _spt_features(normed, pmask, statics: PipelineStatics) -> torch.Tensor:
@@ -337,77 +386,189 @@ def _spt_features(normed, pmask, statics: PipelineStatics) -> torch.Tensor:
                                   statics.azi_n, statics.delta)
 
 
+def _describe(models: Models, statics: PipelineStatics,
+              inv: torch.Tensor) -> dict:
+    """The descriptor net over all patches; in "sampled" mode over
+    sub-batches of patches, which bounds the point stem's memory (every
+    patch is embedded on its own, so the split changes no value)."""
+    k = inv.shape[0]
+    chunk = SAMPLED_DESC_CHUNK if statics.desc_mode == "sampled" else k
+    with torch.no_grad():
+        if k <= chunk:
+            return models.desc(inv)
+        parts = [models.desc(inv[i:i + chunk]) for i in range(0, k, chunk)]
+    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+
+
 def _scale_candidates(models: Models, statics: PipelineStatics,
-                      pre: _Shared, scale: int,
+                      pre: _Shared, scale: int, scale_pos: int,
                       is_aligned: bool) -> _Candidates:
-    """One scale: embed both clouds in ONE descriptor-net call, match,
-    predict SO(2), pose candidates."""
-    nf = statics.num_fps
-    des_r = torch.clamp_min(pre.radii[scale], 1e-3)
-    patches = torch.cat([pre.src_patches[scale], pre.tgt_patches[scale]])
-    pmask = torch.cat([pre.src_pvalid[scale], pre.tgt_pvalid[scale]])
-    kpts = torch.cat([pre.src_kpts, pre.tgt_kpts])
+    """One scale of a batch: embed all 2B clouds' patches in ONE pass (a
+    per-patch radius divisor), match per pair, predict SO(2), pose
+    candidates. ``scale`` indexes the radii, ``scale_pos`` the precomputed
+    patch stack."""
+    b2, nf = pre.kpts_v.shape
+    b = b2 // 2
+    des_r = torch.clamp_min(pre.radii[:, scale], 1e-3)           # [B]
+    patches = pre.patches[:, scale_pos].reshape(b2 * nf, -1, 3)
+    pmask = pre.pvalid[:, scale_pos].reshape(b2 * nf, -1)
+    kpts = pre.kpts.reshape(b2 * nf, 3)
     aligned, _rand_axis, R2 = align_patches(
         patches - kpts[:, None, :], kpts, is_aligned
     )
-    inv = _spt_features(aligned / des_r, pmask, statics)
+    r_patch = des_r.repeat(2)[:, None].expand(b2, nf).reshape(-1, 1, 1)
+    inv = _spt_features(aligned / r_patch, pmask, statics)
     if statics.use_bf16:
         inv = inv.to(torch.bfloat16)
-    with torch.no_grad():
-        out = models.desc(inv)
-    desc2, equi2 = out["desc"], out["equi"]
+    out = _describe(models, statics, inv)
+    desc2 = out["desc"].reshape(b2, nf, -1)
+    equi2 = out["equi"].reshape((b2, nf) + out["equi"].shape[1:])
+    R2 = R2.reshape(b2, nf, 3, 3)
     nn, mutual, nn_d2 = mutual_nearest(
-        desc2[:nf], desc2[nf:], pre.src_kpts_v, pre.tgt_kpts_v
+        desc2[:b], desc2[b:], pre.kpts_v[:b], pre.kpts_v[b:]
     )
-    tt_kpts = pre.tgt_kpts[nn]
+    src_kpts = pre.kpts[:b]
+    tt_kpts = take_rows(pre.kpts[b:], nn)
     e = statics.ele_n
-    ss_equi = equi2[:nf, :, 1 : e - 1]
-    tt_equi = equi2[nf:][nn][:, :, 1 : e - 1]
+    ss_equi = equi2[:b, :, :, 1 : e - 1]
+    tt_equi = take_rows(equi2[b:], nn)[:, :, :, 1 : e - 1]
     if statics.mxu_gather:
         # the JAX one-hot product selects bf16-rounded rows
         tt_equi = tt_equi.to(torch.bfloat16).to(torch.float32)
     with torch.no_grad():
-        ind = models.pose(ss_equi, tt_equi)
+        ind = models.pose(ss_equi.flatten(0, 1), tt_equi.flatten(0, 1))
     R_c, t_c = so2_pose_candidates(
-        pre.src_kpts, tt_kpts, R2[:nf], R2[nf:][nn], ind, statics.azi_n
+        src_kpts, tt_kpts, R2[:b], take_rows(R2[b:], nn),
+        ind.reshape(b, nf), statics.azi_n,
     )
-    return _Candidates(pre.src_kpts, tt_kpts, R_c, t_c, mutual, nn_d2)
+    return _Candidates(src_kpts, tt_kpts, R_c, t_c, mutual, nn_d2)
+
+
+def _solve(statics: PipelineStatics, cand: _Candidates, pool: torch.Tensor,
+           rank_draws: torch.Tensor):
+    """(pose [B, 4, 4], num_inliers [B]) by the configured solver."""
+    if statics.pose_estimator == "gnc":
+        res = gnc_tls_solve(cand.ss, cand.tt, pool,
+                            noise_bound=statics.kiss_resolution)
+    else:
+        res = ransac_pose(cand.ss, cand.tt, pool, cand.valid, rank_draws,
+                          dist_th=statics.dist_th,
+                          similar_th=statics.similar_th,
+                          chunk=statics.ransac_chunk)
+    return res.pose, res.num_inliers
+
+
+def _refine(statics: PipelineStatics, pose: torch.Tensor,
+            cand: _Candidates) -> torch.Tensor:
+    return post_refinement(pose, cand.ss, cand.tt, cand.valid,
+                           statics.dist_th, num_iters=statics.irls_iters)
 
 
 def _pool_and_solve(statics: PipelineStatics, cand: _Candidates,
                     rank_draws: torch.Tensor, src: Cloud, tgt: Cloud,
-                    num_scales_used: int) -> RegistrationResult:
-    ss, tt, Rc, tc, valid, d2 = cand
+                    num_scales_used: int,
+                    refine: bool | None = None) -> RegistrationResult:
+    """Cross-scale consensus -> sampling pool -> pose solve -> result, for a
+    batch. ``refine`` overrides ``statics.pose_refine`` (the timed path runs
+    the refinement as its own phase)."""
+    valid, d2 = cand.valid, cand.d2
     consensus_mask, _best, n_consensus = cross_scale_consensus(
-        Rc, tc, ss, tt, valid, azi_n=statics.azi_n,
+        cand.Rc, cand.tc, cand.ss, cand.tt, valid, azi_n=statics.azi_n,
         inlier_th=statics.inlier_th,
     )
     # sampling pool: consensus inliers when the vote is healthy; else the
     # most confident half of the matches; as a last resort everything valid
-    n_valid = torch.sum(valid)
+    n_valid = torch.sum(valid, dim=1)
     sorted_d2 = torch.sort(
-        torch.where(valid, d2, torch.full_like(d2, float("inf")))
+        torch.where(valid, d2, torch.full_like(d2, float("inf"))), dim=1
     ).values
-    med = sorted_d2[torch.clamp(n_valid // 2, 0, d2.shape[0] - 1)]
+    med = torch.gather(
+        sorted_d2, 1, torch.clamp(n_valid // 2, 0, d2.shape[1] - 1)[:, None])
     confident = valid & (d2 <= med)
     pool = torch.where(
-        consensus_mask.sum() >= 8, consensus_mask,
-        torch.where(confident.sum() >= 8, confident, valid),
+        consensus_mask.sum(dim=1, keepdim=True) >= 8, consensus_mask,
+        torch.where(confident.sum(dim=1, keepdim=True) >= 8, confident, valid),
     )
-    res = ransac_pose(ss, tt, pool, valid, rank_draws,
-                      dist_th=statics.dist_th, similar_th=statics.similar_th,
-                      chunk=statics.ransac_chunk)
-    num_mutual = n_valid
-    ok = src.mask.any() & tgt.mask.any() & (num_mutual >= 3)
-    eye = torch.eye(4, dtype=res.pose.dtype, device=res.pose.device)
+    pose, num_inliers = _solve(statics, cand, pool, rank_draws)
+    if statics.pose_refine if refine is None else refine:
+        pose = _refine(statics, pose, cand)
+    ok = src.mask.any(dim=1) & tgt.mask.any(dim=1) & (n_valid >= 3)
+    eye = torch.eye(4, dtype=pose.dtype, device=pose.device)
     return RegistrationResult(
-        pose=torch.where(ok, res.pose, eye),
-        num_inliers=res.num_inliers,
-        num_mutual=num_mutual,
+        pose=torch.where(ok[:, None, None], pose, eye),
+        num_inliers=num_inliers,
+        num_mutual=n_valid,
         num_consensus=n_consensus,
-        scales_used=num_scales_used,
+        scales_used=torch.full_like(n_valid, num_scales_used),
         valid=ok,
     )
+
+
+def _batch_candidates(models: Models, statics: PipelineStatics, src: Cloud,
+                      tgt: Cloud, draws: Draws, scales: tuple,
+                      is_aligned: bool) -> list:
+    """Per-scale candidates of a batch (stacked clouds, batched draws)."""
+    pre = _precompute(statics, src, tgt, draws, scales)
+    return [_scale_candidates(models, statics, pre, s, j, is_aligned)
+            for j, s in enumerate(scales)]
+
+
+def _register_batch(models: Models, statics: PipelineStatics, src: Cloud,
+                    tgt: Cloud, draws: Draws, scales: tuple,
+                    is_aligned: bool) -> RegistrationResult:
+    """A batch of pairs through the given scales. With
+    ``statics.enable_early_exit`` and more than one scale this is the masked
+    early exit: candidates once per scale, the (cheap) consensus + solve
+    twice, on scale 0's candidates and on all, and per pair the scale-0
+    result where it is confident."""
+    cands = _batch_candidates(models, statics, src, tgt, draws, scales,
+                              is_aligned)
+    res_all = _pool_and_solve(statics, _cat_candidates(cands), draws.ransac,
+                              src, tgt, len(scales))
+    if not (statics.enable_early_exit and len(scales) > 1):
+        return res_all
+    res0 = _pool_and_solve(statics, cands[0], draws.ransac, src, tgt, 1)
+    take0 = res0.num_inliers >= statics.early_exit_min_inliers
+
+    def pick(a, b):
+        return torch.where(take0.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+    return RegistrationResult(*(pick(a, b) for a, b in zip(res0, res_all)))
+
+
+class _Setup(NamedTuple):
+    dev: torch.device
+    statics: PipelineStatics
+    models: Models
+    is_aligned: bool
+
+
+def _setup(cfg: Config, clouds: Sequence[Cloud], params, is_aligned,
+           device) -> _Setup:
+    """What every entry point does first: the device, the statics (checked),
+    the clouds' device (checked), the models."""
+    dev = resolve_device(device)
+    statics = PipelineStatics.from_config(cfg)
+    _check_ported(statics)
+    for cloud in clouds:
+        if cloud.xyz.device.type != dev.type:
+            raise ValueError(f"a cloud lives on {cloud.xyz.device}, not on "
+                             f"{dev}")
+    models = params if isinstance(params, Models) else build_models(
+        statics, params, dev
+    )
+    if is_aligned is None:
+        is_aligned = cfg.patch.is_aligned_to_global_z
+    return _Setup(dev, statics, models, bool(is_aligned))
+
+
+def _default_generator(generator):
+    return torch.Generator().manual_seed(0) if generator is None else generator
+
+
+def _first(res: RegistrationResult) -> RegistrationResult:
+    """The single pair of a batch of one."""
+    return RegistrationResult(*(x[0] for x in res))
 
 
 def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
@@ -415,35 +576,182 @@ def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                   draws: Draws | None = None,
                   is_aligned: bool | None = None,
                   device="cuda") -> RegistrationResult:
-    """Register one scan pair with every scale.
+    """Register one scan pair with every scale (the batch of one).
 
     ``params``: the ``{"desc", "pose"}`` state dicts of
     :func:`bufferx_tpu_torch.tools.weights.load_snapshot`, or prebuilt
     :class:`Models` (build them once with :func:`build_models` when
     registering many pairs). ``draws`` fixes the random draws; otherwise
     they come from ``generator`` (a fresh CPU generator seeded 0 if None).
-    The clouds must already live on ``device``.
+    The clouds must already live on ``device``. With
+    ``cfg.match.enable_early_exit`` the result is the scale-0 solve where
+    that has at least ``early_exit_min_inliers`` inliers (masked: every
+    scale's candidates are computed either way; for the variant that saves
+    the time see :func:`register_pair_early_exit`).
     """
-    dev = resolve_device(device)
-    statics = PipelineStatics.from_config(cfg)
-    _check_ported(statics)
-    if src.xyz.device.type != dev.type or tgt.xyz.device.type != dev.type:
-        raise ValueError(f"clouds live on {src.xyz.device}/{tgt.xyz.device}, "
-                         f"not on {dev}")
-    models = params if isinstance(params, Models) else build_models(
-        statics, params, dev
-    )
+    dev, statics, models, is_aligned = _setup(cfg, (src, tgt), params,
+                                              is_aligned, device)
     if draws is None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        draws = make_draws(statics, generator, dev)
-    if is_aligned is None:
-        is_aligned = cfg.patch.is_aligned_to_global_z
-    pre = _precompute(statics, src, tgt, draws)
-    cands = [
-        _scale_candidates(models, statics, pre, s, bool(is_aligned))
-        for s in range(statics.num_scales)
-    ]
-    cand = _Candidates(*(torch.cat(xs) for xs in zip(*cands)))
-    return _pool_and_solve(statics, cand, draws.ransac, src, tgt,
-                           statics.num_scales)
+        draws = make_draws(statics, _default_generator(generator), dev)
+    return _first(_register_batch(
+        models, statics, stack_clouds([src]), stack_clouds([tgt]),
+        stack_draws([draws]), tuple(range(statics.num_scales)), is_aligned))
+
+
+def register_pair_early_exit(cfg: Config, src: Cloud, tgt: Cloud, params, *,
+                             generator: torch.Generator | None = None,
+                             draws: tuple | None = None,
+                             is_aligned: bool | None = None,
+                             device="cuda") -> RegistrationResult:
+    """Host-dispatched early exit: scale 0 alone, and all scales only when
+    its solve has fewer than ``early_exit_min_inliers`` inliers (one host
+    read of that count). ``draws``: a pair ``(scale-0 draws, all-scale
+    draws)``, as the JAX package derives two sets from its one key."""
+    dev, statics, models, is_aligned = _setup(cfg, (src, tgt), params,
+                                              is_aligned, device)
+    statics = dataclasses.replace(statics, enable_early_exit=False)
+    if draws is None:
+        generator = _default_generator(generator)
+        draws = (make_draws(statics, generator, dev),
+                 make_draws(statics, generator, dev))
+    sb, tb = stack_clouds([src]), stack_clouds([tgt])
+    res0 = _first(_register_batch(models, statics, sb, tb,
+                                  stack_draws([draws[0]]), (0,), is_aligned))
+    if int(res0.num_inliers) >= statics.early_exit_min_inliers:
+        return res0
+    return _first(_register_batch(
+        models, statics, sb, tb, stack_draws([draws[1]]),
+        tuple(range(statics.num_scales)), is_aligned))
+
+
+def register_pair_timed(cfg: Config, src: Cloud, tgt: Cloud, params, *,
+                        generator: torch.Generator | None = None,
+                        draws: Draws | None = None,
+                        is_aligned: bool | None = None, device="cuda"):
+    """Per-phase fenced registration. Returns ``(result, phases)`` with
+    ``phases`` in seconds of host wall time, each phase ending in
+    ``torch.cuda.synchronize()`` on the card:
+
+    - ``desc_time``: FPS, radii, patch selection, descriptor net, mutual
+      matching and the SO(2) head (candidate generation, all scales);
+    - ``pose_time``: cross-scale consensus and the pose solver;
+    - ``pose_optim_time``: IRLS refinement (0.0 when ``pose_refine`` is off).
+
+    The result equals :func:`register_pair`'s without early exit (early exit
+    is a serving feature, not part of the timing protocol). The fences keep
+    the host from running ahead, so use the untimed path for throughput.
+    """
+    dev, statics, models, is_aligned = _setup(cfg, (src, tgt), params,
+                                              is_aligned, device)
+    if draws is None:
+        draws = make_draws(statics, _default_generator(generator), dev)
+    draws = stack_draws([draws])
+    sb, tb = stack_clouds([src]), stack_clouds([tgt])
+    scales = tuple(range(statics.num_scales))
+
+    def fence():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t0 = fence()
+    cand = _cat_candidates(_batch_candidates(models, statics, sb, tb, draws,
+                                             scales, is_aligned))
+    t1 = fence()
+    res = _pool_and_solve(statics, cand, draws.ransac, sb, tb, len(scales),
+                          refine=False)
+    t2 = fence()
+    if statics.pose_refine:
+        eye = torch.eye(4, dtype=res.pose.dtype, device=res.pose.device)
+        res = res._replace(pose=torch.where(
+            res.valid[:, None, None], _refine(statics, res.pose, cand), eye))
+    t3 = fence()
+    phases = {"desc_time": t1 - t0, "pose_time": t2 - t1,
+              "pose_optim_time": (t3 - t2) if statics.pose_refine else 0.0}
+    return _first(res), phases
+
+
+def _fetch_inliers(res: RegistrationResult) -> list:
+    """The one host read of two-phase serving: a batch's inlier counts."""
+    return res.num_inliers.tolist()
+
+
+def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
+                           tgts: Sequence[Cloud], params, *,
+                           batch_size: int = 4,
+                           generator: torch.Generator | None = None,
+                           draws: Sequence[tuple] | None = None,
+                           is_aligned: bool | None = None,
+                           split: bool = False, device="cuda") -> list:
+    """Batched serving: registers ``len(srcs)`` pairs in batches of
+    ``batch_size`` with two-phase early exit. Returns one
+    :class:`RegistrationResult` per pair, its tensors views of the batch's
+    results on ``device``.
+
+    Phase 1 launches scale 0 for EVERY batch before anything is read back:
+    the launches are asynchronous, so the card runs batch after batch while
+    the host is still queueing. Phase 2 reads each batch's inlier counts in
+    one transfer and sends the pairs with fewer than
+    ``early_exit_min_inliers`` through all scales, as one batch.
+
+    The JAX function pads the last batch and every redo batch to
+    ``batch_size`` so that each phase reuses one compiled program. Eager
+    PyTorch compiles nothing, so nothing is padded here: the last batch and
+    the redo batches are as short as they are, and a pair's result does not
+    depend on what shares its batch.
+
+    ``draws``: per batch a pair ``(phase-1 draws, phase-2 draws)``, each a
+    :class:`Draws` with the batch's length as its leading dimension. As in
+    the JAX function, where a redone pair takes the key of its SLOT in the
+    redo batch, the r-th redone pair of a batch takes row r of the phase-2
+    draws. Without ``draws`` both sets of every batch are made from
+    ``generator`` before the first launch (a host-to-device copy waits for
+    the queued work). ``split``: the JAX package can dispatch a batch as two
+    compiled programs instead of one; there is no program boundary here, and
+    both values run the same eager sequence.
+    """
+    del split
+    dev, statics, models, is_aligned = _setup(
+        cfg, tuple(srcs) + tuple(tgts), params, is_aligned, device)
+    statics = dataclasses.replace(statics, enable_early_exit=False)
+    n = len(srcs)
+    if len(tgts) != n or batch_size < 1:
+        raise ValueError(f"{n} sources, {len(tgts)} targets, batch_size "
+                         f"{batch_size}")
+    batches = [list(range(i, min(i + batch_size, n)))
+               for i in range(0, n, batch_size)]
+    if draws is None:
+        generator = _default_generator(generator)
+        draws = [tuple(make_draws(statics, generator, dev, batch=len(idx))
+                       for _phase in range(2)) for idx in batches]
+    if len(draws) != len(batches):
+        raise ValueError(f"{len(batches)} batches need as many pairs of "
+                         f"draws, got {len(draws)}")
+    all_scales = tuple(range(statics.num_scales))
+
+    def run(idx, batch_draws, scales):
+        return _register_batch(
+            models, statics, stack_clouds([srcs[i] for i in idx]),
+            stack_clouds([tgts[i] for i in idx]), batch_draws, scales,
+            is_aligned)
+
+    # phase 1: scale 0 for every batch, no host read
+    staged = [run(idx, d[0], (0,)) for idx, d in zip(batches, draws)]
+
+    # phase 2: one read per batch, then the unconfident pairs in one batch
+    results: list = [None] * n
+    for idx, d, res0 in zip(batches, draws, staged):
+        inliers = _fetch_inliers(res0)
+        redo = [j for j in range(len(idx))
+                if inliers[j] < statics.early_exit_min_inliers]
+        res_full = None
+        if redo:
+            d2 = Draws(*(x[:len(redo)] for x in d[1]))
+            res_full = run([idx[j] for j in redo], d2, all_scales)
+        for j, i in enumerate(idx):
+            if j in redo:
+                slot = redo.index(j)
+                results[i] = RegistrationResult(*(x[slot] for x in res_full))
+            else:
+                results[i] = RegistrationResult(*(x[j] for x in res0))
+    return results

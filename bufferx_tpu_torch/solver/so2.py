@@ -16,7 +16,8 @@ __all__ = ["so2_pose_candidates"]
 
 
 def so2_pose_candidates(ss_kpts, tt_kpts, ss_R, tt_R, ind, azi_n: int):
-    """[C, 3], [C, 3], [C, 3, 3], [C, 3, 3], [C] -> (R [C, 3, 3], t [C, 3])."""
+    """[..., C, 3], [..., C, 3], [..., C, 3, 3], [..., C, 3, 3], [..., C] ->
+    (R [..., C, 3, 3], t [..., C, 3])."""
     angle = ind * (2.0 * math.pi / azi_n) + 1e-6
     R = torch.matmul(torch.matmul(tt_R, rotation_z(angle)),
                      ss_R.transpose(-1, -2))

@@ -1,9 +1,9 @@
-"""Where one registration's time goes on the card.
+"""Where one registration's, or one batch's, time goes on the card.
 
     python3 -m bufferx_tpu_torch.tools.trace_pair [--pairs 3] [--trace PATH]
-        [--snapshot snapshot/hard --fused-conv]
+        [--snapshot snapshot/hard --fused-conv] [--batch 8]
 
-Runs ``register_pair``'s stages at full width on seeded full-overlap pairs
+Runs the registration's stages at full width on seeded full-overlap pairs
 after a warm-up: by default the main path (the shipped
 ``hard_moments_r4ft2`` weights, "moments" descriptor); ``--snapshot``
 takes another checkpoint, whose ``config.json`` (if any) sets the
@@ -13,10 +13,18 @@ fused conv stack. It prints:
 
 - per stage, the host wall time around the stage ending in a
   synchronize (precompute, each scale's candidates, consensus + solve);
-- from ``torch.profiler`` over one pair: the device time per kernel name
-  (top 25), the summed device time, the wall time and the device's idle
-  share (1 - device time / wall, one stream so kernels do not overlap);
+- from ``torch.profiler`` over one ``register_pair``: the device time per
+  kernel name (top 25), the summed device time, the wall time and the
+  device's idle share (1 - device time / wall, one stream so kernels do
+  not overlap);
 - one JSON line with those numbers.
+
+``--batch B`` takes batches of B pairs in the place of single pairs (the
+stages of batched serving, ``--pairs`` batches after the warm-up), and
+profiles two batch runs: scale 0 alone, which is phase 1 of
+``register_pairs_batched``, and all scales, which is its phase 2 for a batch
+whose pairs are all redone; device time, wall time and idle share of each,
+also per pair, and the peak memory.
 
 ``--trace`` also writes the Chrome trace. Needs a CUDA card.
 """
@@ -43,25 +51,62 @@ SNAPSHOT = os.path.join(os.path.dirname(__file__), "..", "..", "snapshot",
 
 
 def _staged(models, statics, src, tgt, draws) -> dict:
-    """One registration, stage by stage, with host wall times (ms)."""
+    """One batch (stacked clouds, batched draws; a single pair is the batch
+    of one), stage by stage, with host wall times (ms)."""
     out = {}
+    scales = tuple(range(statics.num_scales))
     t0 = time.perf_counter()
-    pre = reg._precompute(statics, src, tgt, draws)
+    pre = reg._precompute(statics, src, tgt, draws, scales)
     torch.cuda.synchronize()
     out["precompute"] = (time.perf_counter() - t0) * 1e3
     cands = []
-    for s in range(statics.num_scales):
+    for s in scales:
         t0 = time.perf_counter()
-        cands.append(reg._scale_candidates(models, statics, pre, s, False))
+        cands.append(reg._scale_candidates(models, statics, pre, s, s, False))
         torch.cuda.synchronize()
         out[f"scale{s}"] = (time.perf_counter() - t0) * 1e3
+    del pre
     t0 = time.perf_counter()
-    cand = reg._Candidates(*(torch.cat(xs) for xs in zip(*cands)))
-    reg._pool_and_solve(statics, cand, draws.ransac, src, tgt,
-                        statics.num_scales)
+    reg._pool_and_solve(statics, reg._cat_candidates(cands), draws.ransac,
+                        src, tgt, len(scales))
     torch.cuda.synchronize()
     out["solve"] = (time.perf_counter() - t0) * 1e3
     return out
+
+
+def _profiled(fn, label: str, pairs: int) -> tuple:
+    """``fn`` under the profiler: prints and returns (numbers, profile)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # kernel events only: operator events carry their kernels' time too
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    print(f"profiled {label}: wall {wall_ms:.2f} ms (under the profiler), "
+          f"device {device_ms:.2f} ms, idle share "
+          f"{1 - device_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} "
+          f"launches, peak memory {peak_gb:.2f} GB"
+          + (f"; per pair: wall {wall_ms / pairs:.2f} ms, device "
+             f"{device_ms / pairs:.2f} ms" if pairs > 1 else ""))
+    for ms, count, key in rows[:25]:
+        print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+    numbers = {
+        "profiled_wall_ms": wall_ms, "profiled_device_ms": device_ms,
+        "idle_share": 1 - device_ms / wall_ms, "pairs": pairs,
+        "launches": sum(r[1] for r in rows), "peak_memory_gb": peak_gb,
+        "top_kernels_ms": {k[:90]: ms for ms, _c, k in rows[:25]},
+    }
+    return numbers, prof
 
 
 def main() -> int:
@@ -72,6 +117,8 @@ def main() -> int:
                     help="checkpoint directory (Desc/, Pose/, config.json)")
     ap.add_argument("--fused-conv", action="store_true",
                     help="run the descriptor backbone as the fused stack")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="pairs a batch (0: single pairs)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace_pair needs a CUDA card")
@@ -89,52 +136,55 @@ def main() -> int:
     print(f"snapshot {os.path.normpath(args.snapshot)}: desc_mode "
           f"{statics.desc_mode}, fused_conv {statics.fused_conv}", flush=True)
     models = reg.build_models(statics, load_snapshot(args.snapshot), dev)
-    pairs = []
-    for i in range(args.pairs + 1):
-        s, t, _T = synthetic_pair_full_overlap(np.random.RandomState(i), 24000)
-        pairs.append((reg.prepare_cloud(s, cfg, seed=i, device=dev),
-                      reg.prepare_cloud(t, cfg, seed=i, device=dev)))
-    draws = [reg.make_draws(statics, torch.Generator().manual_seed(i), dev)
-             for i in range(len(pairs))]
+    size = max(args.batch, 1)
+    batches = []
+    for b in range(args.pairs + 1):
+        srcs, tgts = [], []
+        for i in range(b * size, (b + 1) * size):
+            s, t, _T = synthetic_pair_full_overlap(np.random.RandomState(i),
+                                                   24000)
+            srcs.append(reg.prepare_cloud(s, cfg, seed=i, device=dev))
+            tgts.append(reg.prepare_cloud(t, cfg, seed=i, device=dev))
+        batches.append((reg.stack_clouds(srcs), reg.stack_clouds(tgts),
+                        reg.make_draws(statics,
+                                       torch.Generator().manual_seed(b), dev,
+                                       batch=size)))
 
-    _staged(models, statics, *pairs[0], draws[0])              # warm-up
-    stages = [_staged(models, statics, *pairs[i], draws[i])
-              for i in range(1, len(pairs))]
+    _staged(models, statics, *batches[0])                      # warm-up
+    stages = [_staged(models, statics, *batch) for batch in batches[1:]]
     med = {k: float(np.median([s[k] for s in stages])) for k in stages[0]}
+    unit = f"batch of {size}" if args.batch else "pair"
     for k, v in med.items():
-        print(f"stage {k}: {v:.2f} ms (median of {len(stages)})")
+        print(f"stage {k}: {v:.2f} ms a {unit} (median of {len(stages)})")
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        reg.register_pair(cfg, *pairs[1], models, draws=draws[1], device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel events only: operator events carry their kernels' time too
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
-    print(f"profiled pair: wall {wall_ms:.2f} ms (under the profiler), "
-          f"device {device_ms:.2f} ms, idle share "
-          f"{1 - device_ms / wall_ms:.3f}")
-    for ms, count, key in rows[:25]:
-        print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
-    if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-    print(json.dumps({
+    all_scales = tuple(range(statics.num_scales))
+    src, tgt, draws = batches[1]
+    result = {
         "device": torch.cuda.get_device_name(0), "smi": smi,
         "snapshot": os.path.normpath(args.snapshot),
         "desc_mode": statics.desc_mode, "fused_conv": statics.fused_conv,
-        "stages_ms": med, "profiled_wall_ms": wall_ms,
-        "profiled_device_ms": device_ms,
-        "idle_share": 1 - device_ms / wall_ms,
-        "top_kernels_ms": {k[:90]: ms for ms, _c, k in rows[:25]},
-    }), flush=True)
+        "batch": args.batch, "stages_ms": med,
+    }
+    if args.batch:
+        reg._register_batch(models, statics, src, tgt, draws, (0,), False)
+        for label, scales in (("scale 0", (0,)), ("all scales", all_scales)):
+            numbers, prof = _profiled(
+                lambda: reg._register_batch(models, statics, src, tgt, draws,
+                                            scales, False),
+                f"{unit}, {label}", size)
+            result[label.replace(" ", "_")] = numbers
+    else:
+        # the entry point, its set-up and stacking included
+        src1, tgt1 = (reg.Cloud(*(x[0] for x in c)) for c in (src, tgt))
+        draws1 = reg.Draws(*(x[0] for x in draws))
+        numbers, prof = _profiled(
+            lambda: reg.register_pair(cfg, src1, tgt1, models, draws=draws1,
+                                      is_aligned=False, device=dev), unit, 1)
+        result.update(numbers)
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    print(json.dumps(result), flush=True)
     return 0
 
 

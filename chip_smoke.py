@@ -8,11 +8,18 @@ Phases (any failure raises and exits non-zero):
 2. build every CUDA kernel from ``bufferx_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   its path gives it (taken from a real pair): FPS indices exact, there and
+   its path gives it (taken from a real batch of 8 pairs and its first
+   pair): FPS indices exact, there and
    on edge shapes (tied distances across blocks, rounds past the valid
    count, an all-padded cloud, ragged sizes, 1 and 5 clouds), with the
-   latency floor of its design (the rounds' exchange alone) timed beside it;
-   stratified query and cell query bit-exact, moment counts exact and sums
+   latency floor of its design (the rounds' exchange alone) timed beside it,
+   and timed at the batch's 16 clouds beside the pair's 2;
+   the stratified query bit-exact at one cloud, one pair (2 clouds) and the
+   batch (16 clouds), for all three radii and for phase 1's single radius,
+   and on edge shapes (ragged and odd tile widths, 1 and 127 strips, 1 to 4
+   radii, 1 to 10 clouds, a matrix view with a larger cloud stride), each
+   shape timed alone and back to back beside its bound by bytes; the
+   cell query bit-exact, moment counts exact and sums
    within |k - p| <= 1e-4 + 1e-5 |p| (f32 summation order), both also on
    edge shapes (ragged and maximal patch sizes, all points masked, all
    points in one cell, points at distance r and one ulp either side of it,
@@ -37,7 +44,26 @@ Phases (any failure raises and exits non-zero):
 4b. the sampled path: the same with the ``hard`` weights (the reference
    "sampled" descriptor, 10 samples per cell) and ``fused_conv``;
 5. the card path against the CPU path (plain versions) end to end on a
-   small input with the same draws, for both paths.
+   small input with the same draws, for both paths, and for one batch of 3
+   through ``register_pairs_batched``;
+6. batched two-phase serving at full width, moments path, batches of 8, 16
+   seeded full-overlap pairs after a warm-up batch, four times: (a) the
+   shipped early-exit threshold, (b) a threshold no pair reaches (scale 0,
+   then all scales, for every pair), (c) a threshold every pair reaches
+   (scale 0 alone), and (d) a threshold at the median of (c)'s inlier
+   counts, which splits the pairs and gives redo batches shorter than 8;
+   pairs per second, the ``scales_used`` histogram, peak
+   memory, successes; launches per batch asserted (FPS and the stratified
+   query 1 a batch run, moment pooling 1 a scale); (b)'s poses against
+   ``register_pair`` and (c)'s and (d)'s against
+   ``register_pair_early_exit`` with the same draws within 0.02 m / 2
+   degrees; one batch under
+   ``torch.cuda.set_sync_debug_mode("warn")`` to count synchronizing calls;
+6b. the sampled + fused path batched (one batch of 4 pairs, all scales),
+   each pose against ``register_pair``: the cell query 1 launch a scale a
+   batch, the conv stack 1 for each sub-batch of the descriptor net (2);
+7. ``register_pair_early_exit``, ``register_pair_timed`` with IRLS
+   refinement and ``pose_estimator="gnc"`` on one full-width pair each.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -57,17 +83,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(HERE, "snapshot", "hard_moments_r4ft2")
 SNAPSHOT_SAMPLED = os.path.join(HERE, "snapshot", "hard")
 NUM_PAIRS = 4
-# Successes of the JAX package on these 4 pairs at full width, on the CPU,
-# with its own draws (PRNGKey(i) for pair i): 4 of 4 on both paths. Each
-# path here must reach that count minus 1.
-JAX_SUCCESSES = {"moments": 4, "sampled": 4}
+BATCH = 8                 # pairs a batch in phase 6
+NUM_BATCHED_PAIRS = 16
+# Successes of the JAX package on the first 4 pairs at full width, on the
+# CPU, with its own draws (PRNGKey(i) for pair i): 4 of 4 on both paths with
+# all scales, and 4 of 4 on the moments path with scale 0 alone
+# (tests/test_torch_serving.py runs that one). Each path here must reach
+# that count minus 1.
+JAX_SUCCESSES = {"moments": 4, "sampled": 4, "moments_scale0": 4}
 # launches per pair: FPS for both clouds in one launch, the stratified query
-# once per cloud, then per scale moment pooling ("moments"), or the cell
-# query and the fused conv stack ("sampled" with fused_conv)
+# for both clouds and all scales in one launch, then per scale moment pooling
+# ("moments"), or the cell query and the fused conv stack ("sampled" with
+# fused_conv); a batch run launches what one pair does, but the conv stack
+# once for each sub-batch of patches the descriptor net takes
 EXPECTED_PER_PAIR = {
-    "moments": {"fps": 1, "strat": 2, "moments": 3, "cell_query": 0,
+    "moments": {"fps": 1, "strat": 1, "moments": 3, "cell_query": 0,
                 "conv_stack": 0},
-    "sampled": {"fps": 1, "strat": 2, "moments": 0, "cell_query": 3,
+    "sampled": {"fps": 1, "strat": 1, "moments": 0, "cell_query": 3,
                 "conv_stack": 3},
 }
 # the path whose run gives a kernel's "launches" in the kernels line
@@ -88,22 +120,6 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_F32_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def time_ms(torch, fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def fps_edge_cases():
@@ -240,6 +256,104 @@ def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs):
     return launches
 
 
+def pose_errors(se3, cfg, pose, T):
+    """(RTE m, RRE degrees, success against the configuration's thresholds)."""
+    rte = float(se3.compute_rte(pose, T))
+    rre = float(se3.compute_rre(pose, T))
+    return rte, rre, rte < cfg.test.rte_thresh and rre < cfg.test.rre_thresh
+
+
+def run_batched(torch, reg, se3, cuda_build, label, cfg, models, pairs,
+                batch_size, per_scale_kernels, reference=None):
+    """``register_pairs_batched`` over ``pairs`` after a warm-up batch, with
+    seeded draws; asserts the launches (a batch run launches FPS and the
+    stratified query once and each of ``per_scale_kernels``, a dict of name
+    -> launches a scale for a batch run of that many pairs, that often),
+    finite poses, and, with ``reference(i, src, tgt, draws0, draws1) ->
+    pose``, every pair's pose within 0.02 m / 2 degrees of the reference
+    with the same draws (``draws0``: the pair's phase-1 draws; ``draws1``:
+    the phase-2 draws of its slot in its batch's redo batch). Returns a dict
+    of what it measured."""
+    statics = reg.PipelineStatics.from_config(cfg)
+    dev = pairs[0][2].device
+    srcs, tgts = [p[0] for p in pairs], [p[1] for p in pairs]
+    gen = torch.Generator().manual_seed(1000)
+    batches = [list(range(i, min(i + batch_size, len(pairs))))
+               for i in range(0, len(pairs), batch_size)]
+    draws = [tuple(reg.make_draws(statics, gen, dev, batch=len(idx))
+                   for _phase in range(2)) for idx in batches]
+    reg.register_pairs_batched(cfg, srcs[:batch_size], tgts[:batch_size],
+                               models, batch_size=batch_size,
+                               draws=draws[:1], device=dev)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = reg.register_pairs_batched(cfg, srcs, tgts, models,
+                                     batch_size=batch_size, draws=draws,
+                                     device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    scales_used = [int(r.scales_used) for r in out]
+    num_scales = statics.num_scales
+    redone = [[i for i in idx if scales_used[i] == num_scales]
+              for idx in batches]
+    redo_batches = sum(1 for r in redone if r)
+    want = {n: 0 for n in launches}
+    want["fps"] = want["strat"] = len(batches) + redo_batches
+    for n, per_scale in per_scale_kernels.items():
+        want[n] = sum(per_scale(len(idx)) for idx in batches) + \
+            num_scales * sum(per_scale(len(r)) for r in redone if r)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want} "
+                             f"({len(batches)} batches, {redo_batches} redone)")
+    successes, worst = [], (0.0, 0.0)
+    for i, (r, (src, tgt, T)) in enumerate(zip(out, pairs)):
+        if r.pose.shape != (4, 4) or not bool(torch.isfinite(r.pose).all()):
+            raise AssertionError(f"{label} pair {i}: pose not a finite 4x4")
+        rte, rre, ok = pose_errors(se3, cfg, r.pose, T)
+        successes.append(ok)
+        line = (f"{label} pair {i}: scales {scales_used[i]}, RTE {rte:.4f} m, "
+                f"RRE {rre:.3f} deg, success {ok}, inliers "
+                f"{int(r.num_inliers)}, mutual {int(r.num_mutual)}")
+        if reference is not None:
+            k, j = divmod(i, batch_size)
+            slot = redone[k].index(i) if i in redone[k] else j
+            ref = reference(i, src, tgt,
+                            reg.Draws(*(x[j] for x in draws[k][0])),
+                            reg.Draws(*(x[slot] for x in draws[k][1])))
+            d_rte = float(se3.compute_rte(r.pose, ref))
+            d_rre = float(se3.compute_rre(r.pose, ref))
+            _, _, ref_ok = pose_errors(se3, cfg, ref, T)
+            worst = (max(worst[0], d_rte), max(worst[1], d_rre))
+            line += (f"; against the single-pair path {d_rte:.2e} m, "
+                     f"{d_rre:.3f} deg")
+            if d_rte > 0.02 or d_rre > 2.0:
+                raise AssertionError(f"{label} pair {i}: batched and "
+                                     f"single-pair poses disagree: {line}")
+            if ref_ok and not ok:
+                raise AssertionError(f"{label} pair {i}: the batch loses a "
+                                     "pair the single-pair path registers")
+        log(line)
+    hist = {k: scales_used.count(k) for k in sorted(set(scales_used))}
+    log(f"{label}: {len(pairs)} pairs in {seconds * 1e3:.1f} ms, "
+        f"{len(pairs) / seconds:.2f} pairs/s, {seconds / len(pairs) * 1e3:.1f}"
+        f" ms/pair, scales_used {hist}, successes {sum(successes)}/"
+        f"{len(pairs)} (first 4: {sum(successes[:4])}/4), peak memory "
+        f"{peak_gb:.2f} GB, launches {launches}, worst against the "
+        f"single-pair path {worst[0]:.2e} m / {worst[1]:.3f} deg, redo "
+        f"batches of {[len(r) for r in redone if r]} pairs")
+    return dict(label=label, pairs_per_s=len(pairs) / seconds,
+                inliers=[int(r.num_inliers) for r in out],
+                redo_batch_sizes=[len(r) for r in redone if r],
+                ms_per_pair=seconds / len(pairs) * 1e3, scales_used=hist,
+                successes=sum(successes), successes_first4=sum(successes[:4]),
+                peak_memory_gb=peak_gb, launches=launches,
+                worst_vs_single_m=worst[0], worst_vs_single_deg=worst[1])
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bufferx_tpu_torch")):
         log("chip_smoke: bufferx_tpu_torch/ is not beside this script")
@@ -267,6 +381,8 @@ def main() -> int:
     from bufferx_tpu_torch.kernels import strat_pallas
     from bufferx_tpu_torch.models.layers import CylindricalConvNet
     from bufferx_tpu_torch.pipeline import registration as reg
+    from bufferx_tpu_torch.tools import bench_strat
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
     from bufferx_tpu_torch.tools.weights import (
         load_snapshot,
         load_snapshot_config,
@@ -312,19 +428,35 @@ def main() -> int:
     if statics_s.desc_mode != "sampled" or not models_s.desc.fused:
         raise AssertionError("the sampled path did not configure the fused "
                              "conv stack")
-    pairs = []
-    for i in range(NUM_PAIRS):
+    pairs16 = []
+    for i in range(NUM_BATCHED_PAIRS):
         s, t, T = synthetic_pair_full_overlap(np.random.RandomState(i),
                                               num_points=24000)
-        pairs.append((reg.prepare_cloud(s, cfg, seed=i, device=dev),
-                      reg.prepare_cloud(t, cfg, seed=i, device=dev),
-                      torch.from_numpy(T).to(dev)))
+        pairs16.append((reg.prepare_cloud(s, cfg, seed=i, device=dev),
+                        reg.prepare_cloud(t, cfg, seed=i, device=dev),
+                        torch.from_numpy(T).to(dev)))
+    pairs = pairs16[:NUM_PAIRS]
 
     # ---- 3. kernels against their plain versions at their paths' shapes ---
+    # a batch of 8 pairs' precomputation: clouds 0-7 are the sources, 8-15
+    # the targets; clouds 0 and 8 are the first pair
     src, tgt, _ = pairs[0]
-    draws = reg.make_draws(statics, torch.Generator().manual_seed(0), dev)
-    pre = reg._precompute(statics, src, tgt, draws)
+    draws8 = reg.make_draws(statics, torch.Generator().manual_seed(0), dev,
+                            batch=BATCH)
+    src8 = reg.stack_clouds([p[0] for p in pairs16[:BATCH]])
+    tgt8 = reg.stack_clouds([p[1] for p in pairs16[:BATCH]])
+    pre = reg._precompute(statics, src8, tgt8, draws8,
+                          tuple(range(statics.num_scales)))
+    torch.cuda.synchronize()
     nf, S = statics.num_fps, statics.patch_sample
+    first = [0, BATCH]          # the first pair's two clouds
+    pre_radii = pre.radii[0]
+    pre_kpts = torch.cat([pre.kpts[c] for c in first])
+
+    def pair_patches(scale):
+        return (torch.cat([pre.patches[c, scale] for c in first]),
+                torch.cat([pre.pvalid[c, scale] for c in first]))
+
     kernels = []
 
     # K1: both clouds, num_probe rounds
@@ -353,54 +485,93 @@ def main() -> int:
     bnd = bound_ms(b * n * 13 + b * k * 4, 9.0 * b * k * n)
     # the design's latency floor: the same rounds with the exchange between
     # the cluster's blocks alone (no field update, no argmax)
-    floor_ms = time_ms(torch, lambda: fps_mod.fps_exchange_floor_cuda(
+    floor_ms = time_ms(lambda: fps_mod.fps_exchange_floor_cuda(
         xyz2, mask2, k), 5)
     log(f"fps: latency floor (exchange-only rounds) {floor_ms:.3f} ms, "
         f"{floor_ms / k * 1e3:.3f} us a round")
     kernels.append(dict(
         name="fps", match="indices exact, also on 6 edge shapes",
         max_abs_err=0.0, extra=dict(latency_floor_ms=floor_ms),
-        ms=time_ms(torch, lambda: fps_mod.farthest_point_sampling_cuda(
+        ms=time_ms(lambda: fps_mod.farthest_point_sampling_cuda(
             xyz2, mask2, k), 5),
-        plain_ms=time_ms(torch, lambda: fps_mod.farthest_point_sampling_plain(
+        plain_ms=time_ms(lambda: fps_mod.farthest_point_sampling_plain(
             xyz2, mask2, k), 2),
         library_ms=None, bound=bnd,
         shapes=f"xyz {list(xyz2.shape)} -> idx [{b}, {k}]",
     ))
-
-    # K2: the source cloud's all-scale query
-    d2 = pre.d2_src[:nf].contiguous()
-    q, _lo, _res = strat_pallas.quantize(src.xyz, src.mask)
-    L = statics.max_points // S
-    q_t = q.reshape(L, S, 3).permute(2, 0, 1).contiguous()
-    radii2 = (torch.clamp_min(pre.radii, 1e-3) ** 2).contiguous()
-    off = draws.strat_src.contiguous()
-    got = strat_pallas.strat_packed_cuda(d2, q_t, off, radii2)
-    want = strat_pallas.strat_packed_plain(d2, q_t, off, radii2)
+    # the batch's 16 clouds in one launch: 128 blocks in clusters of 8
+    xyz16 = torch.cat([src8.xyz, tgt8.xyz])
+    mask16 = torch.cat([src8.mask, tgt8.mask])
+    got = fps_mod.farthest_point_sampling_cuda(xyz16, mask16, k)
+    in_pair = fps_mod.farthest_point_sampling_cuda(xyz2, mask2, k)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(
-            f"strat: {int((got != want).sum())} packed words differ")
-    R = radii2.shape[0]
-    nbytes = d2.numel() * 4 + off.numel() * 4 + q_t.numel() * 4 + R * 4 \
-        + R * 3 * nf * S * 4
-    kernels.append(dict(
-        name="strat", match="bit-exact", max_abs_err=0.0,
-        ms=time_ms(torch, lambda: strat_pallas.strat_packed_cuda(
-            d2, q_t, off, radii2), 20),
-        plain_ms=time_ms(torch, lambda: strat_pallas.strat_packed_plain(
-            d2, q_t, off, radii2), 5),
-        library_ms=None,
-        bound=bound_ms(nbytes, d2.numel() * (2.0 + 8.0 * R)),
-        shapes=f"d2 {list(d2.shape)} -> packed {list(got.shape)}",
-    ))
+    for c, ref_c in zip(first, in_pair):
+        if not torch.equal(got[c], ref_c):
+            raise AssertionError(f"fps: cloud {c} of the batch of 16 differs "
+                                 "from the same cloud in the pair's launch")
+    fps16_ms = time_ms(lambda: fps_mod.farthest_point_sampling_cuda(
+        xyz16, mask16, k), 5)
+    kernels[-1]["extra"]["ms_16_clouds"] = fps16_ms
+    log(f"fps: 16 clouds in one launch {fps16_ms:.3f} ms, beside "
+        f"{kernels[-1]['ms']:.3f} ms for 2")
+
+    # K2: one cloud (the single-cloud shape of the first design), one pair
+    # (2 clouds) and the batch (16 clouds), all radii and phase 1's one
+    n_edges = bench_strat.check_edges(log)
+    q16, _lo, _res = strat_pallas.quantize(xyz16, mask16)
+    L = statics.max_points // S
+    q_t16 = q16.reshape(2 * BATCH, L, S, 3).permute(0, 3, 1, 2).contiguous()
+    radii2_16 = (torch.clamp_min(torch.cat([pre.radii, pre.radii]), 1e-3)
+                 ** 2).contiguous()
+    off16 = torch.cat([draws8.strat_src, draws8.strat_tgt]).contiguous()
+    d2_16 = pre.d2[:, :nf]           # a view: clouds num_probe rows apart
+    for clouds, label in (([0], "1 cloud"), (first, "1 pair, 2 clouds"),
+                          (list(range(2 * BATCH)), "8 pairs, 16 clouds")):
+        whole = len(clouds) == 2 * BATCH
+        d2 = d2_16 if whole else d2_16[clouds]
+        q_t = q_t16 if whole else q_t16[clouds]
+        off = off16 if whole else off16[clouds]
+        for R in (statics.num_scales, 1):
+            radii2 = radii2_16[clouds][:, :R].contiguous()
+            args = (d2, q_t, off, radii2)
+            got = strat_pallas.strat_packed_cuda(*args)
+            want = strat_pallas.strat_packed_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"strat, {label}, R = {R}: {int((got != want).sum())} "
+                    "packed words differ")
+            shapes = (f"d2 {list(d2.shape)}, R = {R} -> packed "
+                      f"{list(got.shape)}")
+            del got, want
+
+            def launch(args=args):
+                return strat_pallas.strat_packed_cuda(*args)
+
+            kernels.append(dict(
+                name="strat", case=f"{label}, R = {R}",
+                match=f"bit-exact, also on {n_edges} edge shapes",
+                max_abs_err=0.0,
+                extra=dict(ms_back_to_back=bench_strat.time_back_to_back_ms(
+                    launch)),
+                ms=time_ms(launch, 20),
+                plain_ms=time_ms(
+                    lambda args=args: strat_pallas.strat_packed_plain(*args),
+                    2),
+                library_ms=None,
+                bound=bound_ms(bench_strat.strat_bytes(*args),
+                               d2.numel() * (2.0 + 3.0 * R)),
+                shapes=shapes,
+            ))
+    del d2_16, d2, q16, q_t16, q_t, off16, off, args
+    pre = pre._replace(d2=None)     # 3.9 GB that no later phase reads
 
     # K3: scale 0's normalized aligned patches of both clouds
-    patches = torch.cat([pre.src_patches[0], pre.tgt_patches[0]])
-    pmask = torch.cat([pre.src_pvalid[0], pre.tgt_pvalid[0]]).contiguous()
-    kpts = torch.cat([pre.src_kpts, pre.tgt_kpts])
+    patches, pmask = pair_patches(0)
+    pmask = pmask.contiguous()
+    kpts = pre_kpts
     aligned, _, _ = align_patches(patches - kpts[:, None, :], kpts, False)
-    normed = (aligned / torch.clamp_min(pre.radii[0], 1e-3)).contiguous()
+    normed = (aligned / torch.clamp_min(pre_radii[0], 1e-3)).contiguous()
     cells = torch.as_tensor(grid_cell_centers(statics.rad_n, statics.ele_n,
                                               statics.azi_n), device=dev)
     radius = statics.delta / statics.rad_n
@@ -458,11 +629,10 @@ def main() -> int:
     # patches: equal candidate counts per (patch, ring), and no hit dropped
     cull_pairs = cull_kept = cull_hits = 0
     kept_by_scale = []
-    for s_i in range(len(pre.src_patches)):
-        pa_s = torch.cat([pre.src_patches[s_i], pre.tgt_patches[s_i]])
-        ma_s = torch.cat([pre.src_pvalid[s_i], pre.tgt_pvalid[s_i]])
+    for s_i in range(statics.num_scales):
+        pa_s, ma_s = pair_patches(s_i)
         al_s, _, _ = align_patches(pa_s - kpts[:, None, :], kpts, False)
-        no_s = (al_s / torch.clamp_min(pre.radii[s_i], 1e-3)).contiguous()
+        no_s = (al_s / torch.clamp_min(pre_radii[s_i], 1e-3)).contiguous()
         counts = spt_pallas.ring_candidate_counts_cuda(no_s, ma_s, cells,
                                                        radius, azi)
         dropped = 0
@@ -517,11 +687,11 @@ def main() -> int:
               f"{len(edge_cases)} edge shapes; two launches equal bits",
         max_abs_err=moments_err,
         extra=cull_extra,
-        ms=time_ms(torch, lambda: spt_pallas.spt_moments_cuda(
+        ms=time_ms(lambda: spt_pallas.spt_moments_cuda(
             normed, pmask, cells, r2, ring_len=azi), 10),
-        plain_ms=time_ms(torch, lambda: spt_pallas.spt_moments_plain(
+        plain_ms=time_ms(lambda: spt_pallas.spt_moments_plain(
             normed, pmask, cells, r2), 3),
-        library_ms=time_ms(torch, cdist_bmm, 5),
+        library_ms=time_ms(cdist_bmm, 5),
         bound=bound_ms(kq * p * 13 + g * 12 + kq * 10 * g * 4,
                        cull_ops + 16.0 * hits),
         shapes=f"patches {list(normed.shape)} -> {list(got.shape)}",
@@ -541,9 +711,9 @@ def main() -> int:
         match=f"bit-exact, also on {len(edge_cases)} edge shapes",
         max_abs_err=0.0,
         extra=cull_extra,
-        ms=time_ms(torch, lambda: spt_pallas.spt_cell_query_cuda(
+        ms=time_ms(lambda: spt_pallas.spt_cell_query_cuda(
             normed, pmask, cells, radius, ns, ring_len=azi), 20),
-        plain_ms=time_ms(torch, lambda: spt_pallas.spt_cell_query_plain(
+        plain_ms=time_ms(lambda: spt_pallas.spt_cell_query_plain(
             normed, pmask, cells, radius, ns), 3),
         library_ms=None,
         bound=bound_ms(kq * p * 13 + g * 12 + got.numel() * 4, cull_ops),
@@ -615,11 +785,11 @@ def main() -> int:
         extra=dict(max_abs_err_random_weights=float(err_r.max()),
                    mean_abs_err_random_weights=float(err_r.mean()),
                    mean_abs_err=float(err.mean())),
-        ms=time_ms(torch, lambda: conv_pallas.cyl_conv_stack_cuda(
+        ms=time_ms(lambda: conv_pallas.cyl_conv_stack_cuda(
             x5, w5, b5, p5), 10),
-        plain_ms=time_ms(torch, lambda: conv_pallas.cyl_conv_stack_plain(
+        plain_ms=time_ms(lambda: conv_pallas.cyl_conv_stack_plain(
             x5, w5, b5), 3),
-        library_ms=time_ms(torch, cudnn_stack, 5),
+        library_ms=time_ms(cudnn_stack, 5),
         bound=bound_ms(x5.numel() * 4 + w5.numel() * 2 + b5.numel() * 4
                        + got.numel() * 4, flops, PEAK_BF16_TC_PER_S),
         shapes=f"x {list(x5.shape)} -> {list(got.shape)}",
@@ -637,6 +807,139 @@ def main() -> int:
         "sampled": run_path(torch, reg, se3, cuda_build, "sampled", cfg_s,
                             models_s, pairs),
     }
+
+    # ---- 6. batched two-phase serving at full width, moments path ----------
+    def with_threshold(base, threshold):
+        return base.override(match=dict(early_exit_min_inliers=threshold))
+
+    # one scale-0 batch under the sync-debug mode: every call that makes the
+    # host wait for the card warns (a host-to-device copy does too)
+    import warnings
+    stat_b = reg.PipelineStatics.from_config(cfg)
+    reg._register_batch(models, stat_b, src8, tgt8, draws8, (0,), False)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            reg._register_batch(models, stat_b, src8, tgt8, draws8, (0,),
+                                False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+             for w in caught
+             if "called a synchronizing" in str(w.message)]
+    log(f"batched scale-0 run of {BATCH} pairs under sync-debug mode: "
+        f"{len(syncs)} synchronizing calls {sorted(set(syncs))}")
+    if syncs:
+        raise AssertionError("a batch run makes the host wait for the card")
+
+    def single_all_scales(_i, s_c, t_c, _d0, d1):
+        return reg.register_pair(cfg, s_c, t_c, models, draws=d1,
+                                 device=dev).pose
+
+    cfg_exit = with_threshold(cfg, 1)
+
+    def single_scale0(_i, s_c, t_c, d0, d1):
+        return reg.register_pair_early_exit(cfg_exit, s_c, t_c, models,
+                                            draws=(d0, d1), device=dev).pose
+
+    batched = {}
+    for tag, b_cfg, reference in (
+            ("a", cfg, None),
+            ("b", with_threshold(cfg, 10 ** 6), single_all_scales),
+            ("c", cfg_exit, single_scale0)):
+        batched[tag] = run_batched(
+            torch, reg, se3, cuda_build,
+            f"batched moments ({tag}, threshold "
+            f"{b_cfg.match.early_exit_min_inliers})", b_cfg, models, pairs16,
+            BATCH, {"moments": lambda _n: 1}, reference)
+    if batched["b"]["scales_used"] != {statics.num_scales: NUM_BATCHED_PAIRS} \
+            or batched["c"]["scales_used"] != {1: NUM_BATCHED_PAIRS}:
+        raise AssertionError("the thresholds 10^6 and 1 did not send every "
+                             "pair through all scales and through scale 0")
+    if batched["b"]["successes_first4"] < JAX_SUCCESSES["moments"] - 1:
+        raise AssertionError("batched, all scales: fewer successes on the "
+                             "first 4 pairs than the JAX package's minus 1")
+    for tag in ("a", "c"):
+        if batched[tag]["successes_first4"] < \
+                JAX_SUCCESSES["moments_scale0"] - 1:
+            raise AssertionError(f"batched ({tag}): fewer than 3 of the "
+                                 "first 4 pairs register")
+    launches["batched"] = batched["b"]["launches"]
+    # (d) a threshold at the median of the scale-0 inlier counts: about half
+    # of the pairs exit, the others go on in redo batches shorter than 8
+    cfg_mixed = with_threshold(cfg, int(np.median(batched["c"]["inliers"])))
+
+    def single_mixed(_i, s_c, t_c, d0, d1):
+        return reg.register_pair_early_exit(cfg_mixed, s_c, t_c, models,
+                                            draws=(d0, d1), device=dev).pose
+
+    batched["d"] = run_batched(
+        torch, reg, se3, cuda_build,
+        f"batched moments (d, threshold "
+        f"{cfg_mixed.match.early_exit_min_inliers})", cfg_mixed, models,
+        pairs16, BATCH, {"moments": lambda _n: 1}, single_mixed)
+    if sorted(batched["d"]["scales_used"]) != [1, statics.num_scales]:
+        raise AssertionError("the median threshold did not split the pairs "
+                             "between scale 0 and all scales")
+
+    # ---- 6b. the sampled + fused path, batched ----------------------------
+    # one batch of 4 pairs is 12000 patches a scale: the descriptor net, and
+    # with it the conv stack, runs over them in sub-batches
+    def desc_calls(n_pairs):
+        return -(-2 * n_pairs * statics_s.num_fps // reg.SAMPLED_DESC_CHUNK)
+
+    if desc_calls(len(pairs)) < 2:
+        raise AssertionError("the sampled batch does not reach the "
+                             "descriptor net's sub-batches")
+
+    def single_sampled(_i, s_c, t_c, _d0, d1):
+        return reg.register_pair(cfg_s, s_c, t_c, models_s, draws=d1,
+                                 device=dev).pose
+
+    batched["sampled"] = run_batched(
+        torch, reg, se3, cuda_build, "batched sampled (threshold 10^6)",
+        with_threshold(cfg_s, 10 ** 6), models_s, pairs, len(pairs),
+        {"cell_query": lambda _n: 1, "conv_stack": desc_calls},
+        single_sampled)
+    if batched["sampled"]["successes"] < JAX_SUCCESSES["sampled"] - 1:
+        raise AssertionError("batched sampled path: fewer successes than "
+                             "the JAX package's minus 1")
+    launches["batched_sampled"] = batched["sampled"]["launches"]
+
+    # ---- 7. early exit, the timed path with IRLS, GNC ---------------------
+    s7, t7, T7 = pairs[1]
+    gen7 = torch.Generator()
+    runs7 = {
+        "register_pair_early_exit": lambda: (reg.register_pair_early_exit(
+            cfg, s7, t7, models, generator=gen7.manual_seed(7), device=dev),
+            None),
+        "register_pair_timed, pose_refine": lambda: reg.register_pair_timed(
+            cfg.override(test=dict(pose_refine=True)), s7, t7, models,
+            generator=gen7.manual_seed(7), device=dev),
+        "register_pair, gnc": lambda: (reg.register_pair(
+            cfg.override(match=dict(pose_estimator="gnc")), s7, t7, models,
+            generator=gen7.manual_seed(7), device=dev), None),
+    }
+    for name7, run7 in runs7.items():
+        run7()                                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res7, phases7 = run7()
+        torch.cuda.synchronize()
+        ms7 = (time.perf_counter() - t0) * 1e3
+        rte, rre, ok = pose_errors(se3, cfg, res7.pose, T7)
+        log(f"{name7}: {ms7:.1f} ms, scales {int(res7.scales_used)}, RTE "
+            f"{rte:.4f} m, RRE {rre:.3f} deg, success {ok}, inliers "
+            f"{int(res7.num_inliers)}"
+            + (f", phases (s) {phases7}" if phases7 else ""))
+        if not bool(torch.isfinite(res7.pose).all()) or not ok:
+            raise AssertionError(f"{name7}: no finite, successful pose")
+        if phases7 and not (phases7["desc_time"] > 0 and phases7["pose_time"]
+                            > 0 and phases7["pose_optim_time"] > 0):
+            raise AssertionError(f"{name7}: a phase took no time: {phases7}")
 
     # ---- 5. card path against CPU path on a small input -------------------
     shrink = dict(
@@ -665,6 +968,34 @@ def main() -> int:
         if d_rte > 0.02 or d_rre > 1.0:
             raise AssertionError(f"{name}: card and CPU paths disagree on the "
                                  "small pair")
+        if name != "moments":
+            continue
+        # one batch of 3 through both phases (every pair redone)
+        small_b = small.override(match=dict(early_exit_min_inliers=10 ** 6))
+        clouds3 = [synthetic_pair_full_overlap(np.random.RandomState(20 + i),
+                                               2000) for i in range(3)]
+        gen3 = torch.Generator().manual_seed(3)
+        draws3 = tuple(reg.make_draws(s_st, gen3, "cpu", batch=3)
+                       for _phase in range(2))
+        poses3 = {}
+        for d in ("cpu", "cuda"):
+            out3 = reg.register_pairs_batched(
+                small_b,
+                [reg.prepare_cloud(c[0], small, 7, d) for c in clouds3],
+                [reg.prepare_cloud(c[1], small, 7, d) for c in clouds3], sd,
+                batch_size=3, device=d,
+                draws=[tuple(reg.Draws(*(x.to(d) for x in dr))
+                             for dr in draws3)])
+            poses3[d] = torch.stack([r.pose.cpu() for r in out3])
+        d_rte = float(se3.compute_rte(poses3["cuda"], poses3["cpu"]).max())
+        d_rre = float(se3.compute_rre(poses3["cuda"], poses3["cpu"]).max())
+        log(f"{name} small batch of 3, card vs CPU: poses differ by at most "
+            f"{d_rte:.2e} m, {d_rre:.3f} deg")
+        # three pairs share the batched products: the repo's end-to-end
+        # tolerance, not the single pair's tighter one
+        if d_rte > 0.02 or d_rre > 2.0:
+            raise AssertionError(f"{name}: card and CPU paths disagree on the "
+                                 "small batch")
 
     # ---- result lines -----------------------------------------------------
     out = []
@@ -672,6 +1003,8 @@ def main() -> int:
         kk = cuda_build.KERNELS[kr["name"]]
         out.append(dict(
             name=kr["name"], route="cuda", match=kr["match"],
+            shapes=kr["shapes"], **({"case": kr["case"]} if "case" in kr
+                                    else {}),
             source=os.path.relpath(kk.source_path, HERE),
             replaces=kk.replaces,
             launches=launches[PATH_OF[kr["name"]]][kr["name"]],
@@ -681,6 +1014,7 @@ def main() -> int:
             bound_by=kr["bound"][1], library_ms=kr["library_ms"],
             **kr.get("extra", {}),
         ))
+    print(json.dumps({"batched": list(batched.values())}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,35 +50,48 @@ def test_d2_in_radius_flip_rate(seed):
 
 
 def test_mutual_nearest_matches_jax():
+    """A batch of three pairs in one call against the JAX function pair by
+    pair."""
     rs = np.random.RandomState(3)
-    a = rs.randn(128, 32).astype(np.float32)
-    b = (a[rs.permutation(128)] + 0.3 * rs.randn(128, 32)).astype(np.float32)
-    a /= np.linalg.norm(a, axis=1, keepdims=True)
-    b /= np.linalg.norm(b, axis=1, keepdims=True)
-    ma = rs.uniform(size=128) < 0.9
-    mb = rs.uniform(size=128) < 0.9
-    j_nn, j_mut, j_d2 = jnb.mutual_nearest(jnp.asarray(a), jnp.asarray(b),
-                                           jnp.asarray(ma), jnp.asarray(mb))
+    a = rs.randn(3, 128, 32).astype(np.float32)
+    b = np.stack([x[rs.permutation(128)] for x in a])
+    b = (b + 0.3 * rs.randn(3, 128, 32)).astype(np.float32)
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    ma = rs.uniform(size=(3, 128)) < 0.9
+    mb = rs.uniform(size=(3, 128)) < 0.9
     t_nn, t_mut, t_d2 = tnb.mutual_nearest(
         torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(ma),
         torch.from_numpy(mb))
-    np.testing.assert_array_equal(t_nn.numpy(), np.asarray(j_nn))
-    np.testing.assert_array_equal(t_mut.numpy(), np.asarray(j_mut))
-    np.testing.assert_allclose(t_d2.numpy(), np.asarray(j_d2), rtol=0,
-                               atol=1e-5)
-    assert t_mut.sum() > 20
+    for i in range(3):
+        j_nn, j_mut, j_d2 = jnb.mutual_nearest(
+            jnp.asarray(a[i]), jnp.asarray(b[i]), jnp.asarray(ma[i]),
+            jnp.asarray(mb[i]))
+        np.testing.assert_array_equal(t_nn[i].numpy(), np.asarray(j_nn))
+        np.testing.assert_array_equal(t_mut[i].numpy(), np.asarray(j_mut))
+        np.testing.assert_allclose(t_d2[i].numpy(), np.asarray(j_d2), rtol=0,
+                                   atol=1e-5)
+        assert t_mut[i].sum() > 20
 
 
 @pytest.mark.parametrize("subsample", [1, 4])
 def test_radius_matches_jax(subsample):
-    pts, mask, probes, pmask = _cloud(4)
-    d2 = tnb.masked_sqdist(torch.from_numpy(probes), torch.from_numpy(pts),
-                           torch.from_numpy(pmask), torch.from_numpy(mask))
+    """Two clouds of different densities as one batch against the JAX
+    function cloud by cloud."""
+    clouds = [_cloud(4), _cloud(5)]
+    p1, m1, pr1, pm1 = clouds[1]
+    clouds[1] = (p1 * 1.7, m1, pr1 * 1.7, pm1)
+    pts, mask, probes, pmask = (torch.from_numpy(np.stack(x))
+                                for x in zip(*clouds))
+    d2 = tnb.masked_sqdist(probes, pts, pmask, mask)
     th = (5.0, 2.0, 0.5)
-    want = np.asarray(j_radius(jnp.asarray(d2.numpy()), jnp.asarray(mask),
-                               jnp.asarray(pmask), th, 5.0, subsample))
-    got = density_aware_radius_from_d2(d2, torch.from_numpy(mask),
-                                       torch.from_numpy(pmask), th, 5.0,
+    got = density_aware_radius_from_d2(d2, mask, pmask, th, 5.0,
                                        subsample).numpy()
-    np.testing.assert_array_equal(got, want)
-    assert got[0] > got[1] > got[2] > 0
+    assert got.shape == (2, 3)
+    for i in range(2):
+        want = np.asarray(j_radius(
+            jnp.asarray(d2[i].numpy()), jnp.asarray(mask[i].numpy()),
+            jnp.asarray(pmask[i].numpy()), th, 5.0, subsample))
+        np.testing.assert_array_equal(got[i], want)
+        assert got[i, 0] > got[i, 1] > got[i, 2] > 0
+    assert (got[1] > got[0]).all()        # the sparser cloud: larger radii

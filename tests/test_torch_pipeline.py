@@ -45,6 +45,16 @@ SMALL = dict(
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """The suite runs several workers on few cores: two intra-op threads a
+    process keep PyTorch's thread pools from spinning against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = jax_make_cfg("ModelNet40").override(**SMALL)
@@ -124,21 +134,27 @@ def test_precompute_matches(setup):
     keys, draws = _jax_draws(jax.random.PRNGKey(7), jst)
     jpre = jax.jit(jreg._precompute, static_argnums=(0, 4))(
         jst, jsrc, jtgt, keys[1], (0, 1, 2))
-    tpre = treg._precompute(tst, tsrc, ttgt, draws)
-    for name in ("src_kpts", "tgt_kpts", "src_kpts_v", "tgt_kpts_v", "radii"):
-        np.testing.assert_array_equal(getattr(tpre, name).numpy(),
-                                      np.asarray(getattr(jpre, name)), name)
-    for name in ("d2_src", "d2_tgt"):
-        np.testing.assert_allclose(getattr(tpre, name).numpy(),
-                                   np.asarray(getattr(jpre, name)),
+    # the port's precompute takes a batch: here the batch of one, whose two
+    # clouds are stacked source first
+    tpre = treg._precompute(tst, treg.stack_clouds([tsrc]),
+                            treg.stack_clouds([ttgt]),
+                            treg.stack_draws([draws]), (0, 1, 2))
+    np.testing.assert_array_equal(tpre.radii[0].numpy(),
+                                  np.asarray(jpre.radii))
+    for c, side in enumerate(("src", "tgt")):
+        for name in ("kpts", "kpts_v"):
+            np.testing.assert_array_equal(
+                getattr(tpre, name)[c].numpy(),
+                np.asarray(getattr(jpre, f"{side}_{name}")), name)
+        np.testing.assert_allclose(tpre.d2[c].numpy(),
+                                   np.asarray(getattr(jpre, f"d2_{side}")),
                                    rtol=0, atol=1e-4)
-    for side in ("src", "tgt"):
         jv = np.asarray(getattr(jpre, f"{side}_pvalid"))
-        tv = getattr(tpre, f"{side}_pvalid").numpy()
+        tv = tpre.pvalid[c].numpy()
         assert (jv != tv).mean() <= 0.01
         both = (jv & tv)[..., None]
         np.testing.assert_allclose(
-            np.where(both, getattr(tpre, f"{side}_patches").numpy(), 0),
+            np.where(both, tpre.patches[c].numpy(), 0),
             np.where(both, np.asarray(getattr(jpre, f"{side}_patches")), 0),
             rtol=0, atol=1e-6)
 
@@ -179,6 +195,53 @@ def test_register_pair_sampled_fused_matches(sampled_setup, i):
     _check_register_pair(sampled_setup, i)
 
 
+def test_sampled_descriptor_sub_batches(sampled_setup, monkeypatch):
+    """A batch with more patches than ``SAMPLED_DESC_CHUNK`` goes through
+    the descriptor net in sub-batches (here 100, 100 and 56 of 256 patches a
+    scale): the net's outputs are the unsplit call's (1e-5, one patch's
+    values do not depend on its neighbours in the call), and the pair's
+    result is the unsplit run's."""
+    _j, tcfg, _p, models = sampled_setup
+    tst = treg.PipelineStatics.from_config(tcfg)
+    g = tst.rad_n * tst.ele_n * tst.azi_n
+    inv = torch.from_numpy(np.random.RandomState(5).uniform(
+        -1, 1, (2 * tst.num_fps, g, tst.voxel_sample, 3)).astype(np.float32))
+    if tst.use_bf16:
+        inv = inv.to(torch.bfloat16)
+    whole = treg._describe(models, tst, inv)
+    s, t, _T = synthetic_pair_full_overlap(np.random.RandomState(3), 2000)
+    src = treg.prepare_cloud(s, tcfg, seed=3, device="cpu")
+    tgt = treg.prepare_cloud(t, tcfg, seed=3, device="cpu")
+    draws = treg.make_draws(tst, torch.Generator().manual_seed(3), "cpu")
+    res = treg.register_pair(tcfg, src, tgt, models, draws=draws,
+                             device="cpu")
+
+    calls = []
+    desc = models.desc
+    monkeypatch.setattr(treg, "SAMPLED_DESC_CHUNK", 100)
+    monkeypatch.setattr(
+        treg, "_describe",
+        lambda m, st, x, inner=treg._describe: inner(m._replace(
+            desc=lambda part: (calls.append(part.shape[0]), desc(part))[1]),
+            st, x))
+    parts = treg._describe(models, tst, inv)
+    assert calls == [100, 100, 56]
+    assert set(parts) == set(whole)
+    for key in whole:
+        assert parts[key].shape == whole[key].shape
+        np.testing.assert_allclose(parts[key].float().numpy(),
+                                   whole[key].float().numpy(),
+                                   rtol=0, atol=1e-5, err_msg=key)
+    del calls[:]
+    res_parts = treg.register_pair(tcfg, src, tgt, models, draws=draws,
+                                   device="cpu")
+    assert calls == [100, 100, 56] * tst.num_scales
+    assert float(se3.compute_rte(res_parts.pose, res.pose)) <= 1e-4
+    assert float(se3.compute_rre(res_parts.pose, res.pose)) <= 1e-2
+    n_in = int(res.num_inliers)
+    assert abs(int(res_parts.num_inliers) - n_in) <= max(1, 0.01 * n_in)
+
+
 def test_register_pair_device_policy(setup, monkeypatch):
     _j, tcfg, _p, models = setup
     s, t, _T = synthetic_pair_full_overlap(np.random.RandomState(0), 500)
@@ -188,7 +251,7 @@ def test_register_pair_device_policy(setup, monkeypatch):
     with pytest.raises(RuntimeError):
         treg.register_pair(tcfg, src, tgt, models)           # cuda by default
     with pytest.raises(NotImplementedError):
-        treg.register_pair(tcfg.override(match=dict(pose_estimator="gnc")),
+        treg.register_pair(tcfg.override(data=dict(clutter_filter=True)),
                            src, tgt, models, device="cpu")
     # default draws come from a seeded generator: deterministic
     a = treg.register_pair(tcfg, src, tgt, models, device="cpu")
@@ -214,3 +277,23 @@ def test_empty_cloud_gives_identity(setup, which):
     assert not bool(tres.valid) and not bool(jres.valid)
     assert torch.equal(tres.pose, torch.eye(4))
     np.testing.assert_array_equal(np.asarray(jres.pose), np.eye(4))
+
+
+def test_check_ported_options(setup):
+    """GNC, IRLS refinement and early exit are ported; what is not still
+    raises, and says what."""
+    _j, tcfg, _p, _m = setup
+    for kw in (dict(match=dict(pose_estimator="gnc")),
+               dict(test=dict(pose_refine=True)),
+               dict(match=dict(enable_early_exit=True))):
+        treg._check_ported(treg.PipelineStatics.from_config(
+            tcfg.override(**kw)))
+    for kw, word in ((dict(data=dict(clutter_filter=True)), "clutter_filter"),
+                     (dict(patch=dict(desc_pool="softmax")), "desc_pool"),
+                     (dict(patch=dict(vmap_scales=True)), "vmap_scales"),
+                     (dict(patch=dict(strat_ball_query=False)), "patch query"),
+                     (dict(match=dict(pose_estimator="teaser")),
+                      "pose_estimator")):
+        with pytest.raises(NotImplementedError, match=word):
+            treg._check_ported(treg.PipelineStatics.from_config(
+                tcfg.override(**kw)))
