@@ -3,7 +3,9 @@
 Mirrors :mod:`bufferx_tpu.config` field for field (names, defaults) for the
 parts the ported path reads: data, test thresholds, patch embedder,
 matching, and the static capacities. Training and optimizer settings come
-with the training slice. ``make_cfg`` knows the presets ported so far.
+with the training slice (``outdoor_base`` sets some of them in the JAX
+package; here it sets the rest). ``make_cfg`` knows every preset of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ __all__ = [
     "Config",
     "make_cfg",
     "indoor_base",
+    "outdoor_base",
     "DATASETS",
 ]
 
@@ -123,10 +126,63 @@ class Config:
 
 
 def indoor_base() -> Config:
+    """Indoor profile: RGB-D fragment scale (reference ``IndoorBaseConfig``)."""
     return Config(data=DataConfig(clutter_filter=True))
 
 
+def outdoor_base() -> Config:
+    """Outdoor profile: LiDAR scale (reference ``OutdoorBaseConfig``)."""
+    return Config(
+        data=DataConfig(downsample=0.05, voxel_size_0=0.30),
+        test=TestConfig(rte_thresh=2.0, rre_thresh=5.0),
+        patch=PatchConfig(des_r=3.0, is_aligned_to_global_z=True),
+        match=MatchConfig(
+            dist_th=0.30, inlier_th=2.0, similar_th=0.9, confidence=1.0
+        ),
+    )
+
+
+def _threedmatch(root: str) -> Config:
+    return indoor_base().override(
+        data=dict(dataset="3DMatch", root=root),
+        test=dict(experiment_id="threedmatch", pose_refine=True),
+    )
+
+
+def _threedlomatch(root: str) -> Config:
+    cfg = _threedmatch(root)
+    return replace(cfg.override(data=dict(dataset="3DLoMatch")),
+                   benchmark="3DLoMatch")
+
+
+def _indoor(name: str):
+    return lambda root: indoor_base().override(
+        data=dict(dataset=name, root=root))
+
+
+def _outdoor(name: str, **data):
+    return lambda root: outdoor_base().override(
+        data=dict(dataset=name, root=root, **data))
+
+
+def _kitti(root: str) -> Config:
+    return outdoor_base().override(
+        data=dict(dataset="KITTI", root=root, pdist=10.0),
+        test=dict(experiment_id="kitti", rte_thresh=2.0, rre_thresh=5.0),
+    )
+
+
+def _eth(root: str) -> Config:
+    return outdoor_base().override(
+        data=dict(dataset="ETH", root=root),
+        test=dict(rte_thresh=0.3, rre_thresh=2.0),
+        match=dict(dist_th=0.20),
+    )
+
+
 def _modelnet40(root: str) -> Config:
+    # object-scale synthetic shapes carry no volumetric sensor clutter: no
+    # density prefilter
     return indoor_base().override(
         data=dict(dataset="ModelNet40", root=root, downsample=0.01,
                   voxel_size_0=0.02, clutter_filter=False),
@@ -134,14 +190,29 @@ def _modelnet40(root: str) -> Config:
     )
 
 
-DATASETS = {"ModelNet40": _modelnet40}
+DATASETS = {
+    "3DMatch": _threedmatch,
+    "3DLoMatch": _threedlomatch,
+    "Scannetpp_iphone": _indoor("Scannetpp_iphone"),
+    "Scannetpp_faro": _indoor("Scannetpp_faro"),
+    "KITTI": _kitti,
+    "WOD": _outdoor("WOD", pdist=10.0),
+    "MIT": _outdoor("MIT", pdist=5.0),
+    "KAIST": _outdoor("KAIST", pdist=10.0),
+    "KAIST_hetero": _outdoor("KAIST_hetero", pdist=10.0),
+    "ETH": _eth,
+    "Oxford": _outdoor("Oxford", pdist=5.0),
+    "TIERS": _outdoor("TIERS", pdist=10.0),
+    "TIERS_hetero": _outdoor("TIERS_hetero", pdist=10.0),
+    "ModelNet40": _modelnet40,
+}
 
 
 def make_cfg(dataset_name: str, root_dir: str = "") -> Config:
+    """Name -> config dispatch (reference: ``config/__init__.py:18-56``)."""
     try:
         return DATASETS[dataset_name](root_dir)
     except KeyError:
         raise ValueError(
-            f"Unknown or not yet ported dataset {dataset_name!r}; expected one "
-            f"of {sorted(DATASETS)}"
+            f"Unknown dataset {dataset_name!r}; expected one of {sorted(DATASETS)}"
         ) from None

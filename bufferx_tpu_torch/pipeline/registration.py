@@ -6,11 +6,13 @@ JAX package maps its single-pair program over the batch with ``vmap``; here
 the pair dimension is written out), and :func:`register_pair` is the batch
 of one:
 
-1. :func:`_precompute`: one FPS launch for all 2B clouds (kernel K1) gives
-   the radius probes and, as their prefix, the keypoints; the
-   centroid-centred f32 distance matrices; density-aware radii per pair; and
-   the stratified patch selection of every scale asked for, for all clouds,
-   in one launch over the matrices (kernel K2).
+1. :func:`_precompute`: with ``clutter_filter``, the density prefilter
+   (:mod:`bufferx_tpu_torch.kernels.density`) refines the 2B clouds' masks,
+   and everything in this step reads the refined ones; one FPS launch for
+   all 2B clouds (kernel K1) gives the radius probes and, as their prefix,
+   the keypoints; the centroid-centred f32 distance matrices; density-aware
+   radii per pair; and the stratified patch selection of every scale asked
+   for, for all clouds, in one launch over the matrices (kernel K2).
 2. :func:`_scale_candidates`, once per scale: LRF alignment, the SPT
    features (moment pooling, kernel K3, and derotation in "moments" mode;
    the cell query, kernel K4, and derotation in "sampled" mode) over all
@@ -21,10 +23,14 @@ of one:
    rounds), the cost-volume head and SO(2) pose candidates.
 3. :func:`_pool_and_solve`: cross-scale consensus, the sampling-pool
    policy, RANSAC with a weighted-Kabsch refit or GNC-TLS, and optionally
-   IRLS refinement, each with a leading pair dimension.
+   IRLS refinement, each with a leading pair dimension. The result's
+   ``valid`` reads the clouds' own (unfiltered) masks, as in the JAX
+   package.
 
 Nothing between the entry point and the result reads a value back to the
 host, so a batch is one uninterrupted stream of launches.
+:func:`register_batch` runs one batch through all scales (the JAX
+package's ``vmap`` of ``register_pair_jit``), and
 :func:`register_pairs_batched` is two-phase serving on top of that: scale 0
 for every batch, then all scales for the pairs whose scale-0 solve was not
 confident; its only host read is one transfer of the inlier counts per batch.
@@ -32,8 +38,8 @@ confident; its only host read is one transfer of the inlier counts per batch.
 Random draws are explicit (:class:`Draws`): the strip offsets of the
 stratified query and the RANSAC rank draws. By default they come from a
 ``torch.Generator``; a test can pass the JAX package's draws instead.
-Options that the JAX package has but the port does not yet (the clutter
-prefilter, other patch queries, the softmax pool, scale-vmapped or
+Options that the JAX package has but the port does not yet (other patch
+queries, exact top-k sampling, the softmax pool, scale-vmapped or
 scale-batched convs) raise ``NotImplementedError``.
 """
 
@@ -55,6 +61,7 @@ from bufferx_tpu_torch.geometry.moments import (
     moments_to_features_mm,
     pool_cell_moments,
 )
+from bufferx_tpu_torch.kernels.density import density_inlier_mask
 from bufferx_tpu_torch.kernels.fps import fps
 from bufferx_tpu_torch.kernels.neighbors import masked_sqdist, mutual_nearest
 from bufferx_tpu_torch.kernels.radius import density_aware_radius_from_d2
@@ -81,6 +88,7 @@ __all__ = [
     "prepare_cloud",
     "stack_clouds",
     "stack_draws",
+    "register_batch",
     "register_pair",
     "register_pair_early_exit",
     "register_pair_timed",
@@ -156,6 +164,7 @@ class PipelineStatics:
     desc_pool: str
     desc_width: float
     clutter_filter: bool
+    exact_topk: bool
     strat_ball_query: bool
     radius_subsample: int
     radius_source: str
@@ -197,6 +206,7 @@ class PipelineStatics:
             desc_pool=p.desc_pool,
             desc_width=p.desc_width,
             clutter_filter=cfg.data.clutter_filter,
+            exact_topk=p.exact_topk,
             strat_ball_query=p.strat_ball_query,
             radius_subsample=p.radius_subsample,
             radius_source=p.radius_source,
@@ -213,8 +223,9 @@ def _check_ported(s: PipelineStatics) -> None:
     missing = []
     if s.pose_estimator not in ("ransac", "gnc"):
         missing.append(f"pose_estimator={s.pose_estimator!r}")
-    if s.clutter_filter:
-        missing.append("clutter_filter=True (density prefilter)")
+    if s.exact_topk:
+        missing.append("exact_topk=True (exact top-k patch and cell "
+                       "sampling)")
     if s.desc_mode not in ("moments", "sampled") or s.desc_pool != "gated":
         missing.append(f"desc_mode={s.desc_mode!r}/desc_pool={s.desc_pool!r}")
     if s.vmap_scales or s.scale_batch_conv:
@@ -334,6 +345,10 @@ def _precompute(statics: PipelineStatics, src: Cloud, tgt: Cloud,
     b = src.xyz.shape[0]
     xyz = torch.cat([src.xyz, tgt.xyz])                          # [2B, N, 3]
     mask = torch.cat([src.mask, tgt.mask])
+    if statics.clutter_filter:
+        # FPS, d2, the radius cloud's choice and the patches all see the
+        # refined masks
+        mask = density_inlier_mask(xyz, mask)
     idx, v = fps(xyz, mask, statics.num_probe)
     probe = take_rows(xyz, idx)                                  # [2B, P, 3]
 
@@ -571,31 +586,59 @@ def _first(res: RegistrationResult) -> RegistrationResult:
     return RegistrationResult(*(x[0] for x in res))
 
 
+def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
+                   params, *, draws: Draws | None = None,
+                   generator: torch.Generator | None = None,
+                   is_aligned: bool | None = None,
+                   device="cuda") -> RegistrationResult:
+    """Register a batch of B scan pairs with every scale, in one pass: the
+    counterpart of the JAX package's ``jax.vmap(register_pair_jit)``.
+    Returns one :class:`RegistrationResult` whose tensors have a leading B.
+
+    ``params``: the ``{"desc", "pose"}`` state dicts of
+    :func:`bufferx_tpu_torch.tools.weights.load_snapshot`, or prebuilt
+    :class:`Models` (build them once with :func:`build_models` when
+    registering many pairs). ``draws`` fixes the random draws (a leading B);
+    otherwise they come from ``generator`` (a fresh CPU generator seeded 0
+    if None). The clouds must already live on ``device``; one
+    ``is_aligned`` holds for the whole batch. With
+    ``cfg.match.enable_early_exit`` a pair's result is its scale-0 solve
+    where that has at least ``early_exit_min_inliers`` inliers (masked:
+    every scale's candidates are computed either way; for the variants that
+    save the time see :func:`register_pair_early_exit` and
+    :func:`register_pairs_batched`). Any B >= 1 runs as it is: nothing is
+    padded, and a pair's result does not depend on what shares its batch.
+    """
+    dev, statics, models, is_aligned = _setup(
+        cfg, tuple(srcs) + tuple(tgts), params, is_aligned, device)
+    if len(srcs) != len(tgts) or not srcs:
+        raise ValueError(f"{len(srcs)} sources and {len(tgts)} targets")
+    if draws is None:
+        draws = make_draws(statics, _default_generator(generator), dev,
+                           batch=len(srcs))
+    return _register_batch(models, statics, stack_clouds(srcs),
+                           stack_clouds(tgts), draws,
+                           tuple(range(statics.num_scales)), is_aligned)
+
+
 def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                   generator: torch.Generator | None = None,
                   draws: Draws | None = None,
                   is_aligned: bool | None = None,
                   device="cuda") -> RegistrationResult:
-    """Register one scan pair with every scale (the batch of one).
-
-    ``params``: the ``{"desc", "pose"}`` state dicts of
-    :func:`bufferx_tpu_torch.tools.weights.load_snapshot`, or prebuilt
-    :class:`Models` (build them once with :func:`build_models` when
-    registering many pairs). ``draws`` fixes the random draws; otherwise
-    they come from ``generator`` (a fresh CPU generator seeded 0 if None).
-    The clouds must already live on ``device``. With
-    ``cfg.match.enable_early_exit`` the result is the scale-0 solve where
-    that has at least ``early_exit_min_inliers`` inliers (masked: every
-    scale's candidates are computed either way; for the variant that saves
-    the time see :func:`register_pair_early_exit`).
+    """Register one scan pair with every scale: :func:`register_batch` on
+    the batch of one (see there for ``params``, early exit and the
+    clouds' device). ``draws`` are one pair's (no leading dimension);
+    otherwise they come from ``generator`` (a fresh CPU generator seeded 0
+    if None).
     """
-    dev, statics, models, is_aligned = _setup(cfg, (src, tgt), params,
-                                              is_aligned, device)
     if draws is None:
-        draws = make_draws(statics, _default_generator(generator), dev)
-    return _first(_register_batch(
-        models, statics, stack_clouds([src]), stack_clouds([tgt]),
-        stack_draws([draws]), tuple(range(statics.num_scales)), is_aligned))
+        statics = PipelineStatics.from_config(cfg)
+        draws = make_draws(statics, _default_generator(generator),
+                           resolve_device(device))
+    return _first(register_batch(cfg, [src], [tgt], params,
+                                 draws=stack_draws([draws]),
+                                 is_aligned=is_aligned, device=device))
 
 
 def register_pair_early_exit(cfg: Config, src: Cloud, tgt: Cloud, params, *,

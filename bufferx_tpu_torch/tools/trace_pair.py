@@ -1,7 +1,7 @@
 """Where one registration's, or one batch's, time goes on the card.
 
     python3 -m bufferx_tpu_torch.tools.trace_pair [--pairs 3] [--trace PATH]
-        [--snapshot snapshot/hard --fused-conv] [--batch 8]
+        [--snapshot snapshot/hard --fused-conv] [--batch 8] [--dataset 3DMatch]
 
 Runs the registration's stages at full width on seeded full-overlap pairs
 after a warm-up: by default the main path (the shipped
@@ -26,6 +26,11 @@ profiles two batch runs: scale 0 alone, which is phase 1 of
 whose pairs are all redone; device time, wall time and idle share of each,
 also per pair, and the peak memory.
 
+``--dataset`` takes another preset than ``ModelNet40``; with one that
+turns the clutter prefilter on (``3DMatch``), the prefilter is also
+profiled alone on the batch's 2B clouds: its device time and how far it
+raises the allocated memory above what was allocated before it.
+
 ``--trace`` also writes the Chrome trace. Needs a CUDA card.
 """
 
@@ -43,6 +48,7 @@ from torch.autograd import DeviceType
 
 from bufferx_tpu_torch.config import make_cfg
 from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
+from bufferx_tpu_torch.kernels.density import density_inlier_mask
 from bufferx_tpu_torch.pipeline import registration as reg
 from bufferx_tpu_torch.tools.weights import load_snapshot, load_snapshot_config
 
@@ -119,6 +125,8 @@ def main() -> int:
                     help="run the descriptor backbone as the fused stack")
     ap.add_argument("--batch", type=int, default=0,
                     help="pairs a batch (0: single pairs)")
+    ap.add_argument("--dataset", default="ModelNet40",
+                    help="configuration preset (make_cfg)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace_pair needs a CUDA card")
@@ -129,12 +137,13 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
 
-    cfg = make_cfg("ModelNet40").override(
+    cfg = make_cfg(args.dataset).override(
         patch=dict(load_snapshot_config(args.snapshot),
                    fused_conv=args.fused_conv))
     statics = reg.PipelineStatics.from_config(cfg)
-    print(f"snapshot {os.path.normpath(args.snapshot)}: desc_mode "
-          f"{statics.desc_mode}, fused_conv {statics.fused_conv}", flush=True)
+    print(f"{args.dataset}, snapshot {os.path.normpath(args.snapshot)}: "
+          f"desc_mode {statics.desc_mode}, fused_conv {statics.fused_conv}, "
+          f"clutter_filter {statics.clutter_filter}", flush=True)
     models = reg.build_models(statics, load_snapshot(args.snapshot), dev)
     size = max(args.batch, 1)
     batches = []
@@ -161,10 +170,23 @@ def main() -> int:
     src, tgt, draws = batches[1]
     result = {
         "device": torch.cuda.get_device_name(0), "smi": smi,
-        "snapshot": os.path.normpath(args.snapshot),
+        "snapshot": os.path.normpath(args.snapshot), "dataset": args.dataset,
         "desc_mode": statics.desc_mode, "fused_conv": statics.fused_conv,
         "batch": args.batch, "stages_ms": med,
     }
+    if statics.clutter_filter:
+        xyz = torch.cat([src.xyz, tgt.xyz])
+        mask = torch.cat([src.mask, tgt.mask])
+        density_inlier_mask(xyz, mask)                          # warm-up
+        torch.cuda.synchronize()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        numbers, _prof = _profiled(lambda: density_inlier_mask(xyz, mask),
+                                   f"clutter filter, {2 * size} clouds", 1)
+        numbers["memory_above_before_gb"] = (numbers["peak_memory_gb"]
+                                             - before_gb)
+        print(f"clutter filter: {numbers['memory_above_before_gb']:.2f} GB "
+              "above the memory allocated before it", flush=True)
+        result["clutter_filter"] = numbers
     if args.batch:
         reg._register_batch(models, statics, src, tgt, draws, (0,), False)
         for label, scales in (("scale 0", (0,)), ("all scales", all_scales)):

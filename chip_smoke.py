@@ -63,7 +63,21 @@ Phases (any failure raises and exits non-zero):
    each pose against ``register_pair``: the cell query 1 launch a scale a
    batch, the conv stack 1 for each sub-batch of the descriptor net (2);
 7. ``register_pair_early_exit``, ``register_pair_timed`` with IRLS
-   refinement and ``pose_estimator="gnc"`` on one full-width pair each.
+   refinement and ``pose_estimator="gnc"`` on one full-width pair each;
+8. the quality-gate path at full width: ``tools/exp_hard.py``'s runner on
+   all 17 cells of the hard gate, one batch of 8 pairs a cell, with the
+   3DMatch configuration (clutter prefilter and IRLS on): per-cell recall,
+   pairs per second and peak memory, launches asserted (FPS and the
+   stratified query 1 a batch, moment pooling 3), successes >= the JAX
+   package's count on the same 136 pairs less 6; then the prefilter on the
+   card against its plain version (the same torch ops on the CPU) on the
+   16 clouds of the 20%-clutter cell's batch (slots that flip, timed), and
+   that batch through all scales under the sync-debug mode (no
+   synchronizing call);
+9. the evaluation harness: ``evaluate_pairs`` on 4 hard pairs with per-phase
+   timing off and on, ``evaluate_pairs_batched`` on 16 pairs at B = 8, the
+   per-sample CSVs written under ``chiprun_out/``; every pose within 1e-5 m
+   of ``register_batch``'s on the same clouds with the same draws.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -91,6 +105,15 @@ NUM_BATCHED_PAIRS = 16
 # (tests/test_torch_serving.py runs that one). Each path here must reach
 # that count minus 1.
 JAX_SUCCESSES = {"moments": 4, "sampled": 4, "moments_scale0": 4}
+# Successes of the JAX package on phase 8's 136 pairs (17 cells x 8), at full
+# width on the CPU, with its own draws:
+#   python scripts/exp_hard.py --cpu --pairs-per-cell 8 --batch 1 \
+#       --checkpoint-dir snapshot/hard_moments_r4ft2
+# (batches of 1: a vmapped batch of 8 at full width needs tens of GB on the
+# CPU; the pairs are the same, the draws those of its batches of 1). Phase 8
+# must reach this count less 6.
+JAX_GATE_SUCCESSES = 95
+GATE_PAIRS = 8            # pairs a cell in phase 8: one batch
 # launches per pair: FPS for both clouds in one launch, the stratified query
 # for both clouds and all scales in one launch, then per scale moment pooling
 # ("moments"), or the cell query and the fused conv stack ("sampled" with
@@ -352,6 +375,200 @@ def run_batched(torch, reg, se3, cuda_build, label, cfg, models, pairs,
                 successes=sum(successes), successes_first4=sum(successes[:4]),
                 peak_memory_gb=peak_gb, launches=launches,
                 worst_vs_single_m=worst[0], worst_vs_single_deg=worst[1])
+
+
+def run_gate(torch, reg, cuda_build, models, dev):
+    """Phase 8. Returns (launches of the gate run, what it measured)."""
+    from bufferx_tpu_torch.tools import exp_hard
+
+    cfg = exp_hard.gate_config("moments", SNAPSHOT)
+    statics = reg.PipelineStatics.from_config(cfg)
+    if not (statics.clutter_filter and statics.pose_refine):
+        raise AssertionError("the gate configuration lost its prefilter or "
+                             "IRLS")
+    cells = exp_hard.build_cells(False)
+    kw = dict(pairs_per_cell=GATE_PAIRS, num_points=24000, batch=BATCH,
+              voxel=0.025, seed=20240)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = [exp_hard.run_cell(cfg, models, cell, ci, device=dev, **kw)
+            for ci, cell in enumerate(cells)]
+    seconds = time.perf_counter() - t0
+    launches = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for ci, row in enumerate(rows):
+        log(f"gate cell {ci} {cells[ci]}: recall {row['recall']:.3f} "
+            f"({sum(row['successes'])}/{row['n']}), RTE median "
+            f"{row['rte_med']:.4f} m, {row['pairs_per_s']:.2f} pairs/s")
+    n_batches = len(cells) * -(-GATE_PAIRS // BATCH)
+    want = {n: 0 for n in launches}
+    want.update(fps=n_batches, strat=n_batches,
+                moments=n_batches * statics.num_scales)
+    if launches != want:
+        raise AssertionError(f"gate: launches {launches}, expected {want}")
+    successes = sum(sum(r["successes"]) for r in rows)
+    pairs = sum(r["n"] for r in rows)
+    reg_s = sum(r["n"] / r["pairs_per_s"] for r in rows)
+    log(f"gate: {successes}/{pairs} successes (JAX package "
+        f"{JAX_GATE_SUCCESSES}), mean recall "
+        f"{np.mean([r['recall'] for r in rows]):.4f}, {pairs / reg_s:.2f} "
+        f"pairs/s of registration ({pairs / seconds:.2f} with the host's "
+        f"pair synthesis), peak memory {peak_gb:.2f} GB, launches "
+        f"{launches}")
+    if successes < JAX_GATE_SUCCESSES - 6:
+        raise AssertionError(f"gate: {successes} successes < the JAX "
+                             f"package's {JAX_GATE_SUCCESSES} - 6")
+    for r in rows:
+        r.pop("successes")
+    return launches, dict(
+        rows=rows, successes=successes, pairs=pairs,
+        jax_successes=JAX_GATE_SUCCESSES,
+        mean_recall=float(np.mean([r["recall"] for r in rows])),
+        pairs_per_s_registration=pairs / reg_s,
+        pairs_per_s_with_synthesis=pairs / seconds, peak_memory_gb=peak_gb,
+        filter=check_gate_filter(torch, reg, models, dev, cfg, cells, kw))
+
+
+def check_gate_filter(torch, reg, models, dev, cfg, cells, kw):
+    """The prefilter on the card against the same ops on the CPU, on the 16
+    clouds of the 20%-clutter cell's batch, timed; then that batch through
+    all scales under the sync-debug mode."""
+    import warnings
+
+    from bufferx_tpu_torch.kernels.density import density_inlier_mask
+    from bufferx_tpu_torch.tools import exp_hard
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+
+    statics = reg.PipelineStatics.from_config(cfg)
+    ci = len(cells) - 1
+    pairs8 = exp_hard.cell_pairs(cells[ci], ci, BATCH, kw["num_points"],
+                                 kw["voxel"], kw["seed"])
+    src8 = reg.stack_clouds([reg.prepare_cloud(p[0], cfg, seed=i, device=dev)
+                             for i, p in enumerate(pairs8)])
+    tgt8 = reg.stack_clouds([reg.prepare_cloud(p[1], cfg, seed=i + 1,
+                                               device=dev)
+                             for i, p in enumerate(pairs8)])
+    xyz = torch.cat([src8.xyz, tgt8.xyz])
+    mask = torch.cat([src8.mask, tgt8.mask])
+    got = density_inlier_mask(xyz, mask)
+    want_m = density_inlier_mask(xyz.cpu(), mask.cpu())
+    torch.cuda.synchronize()
+    flips = int((got.cpu() != want_m).sum())
+    valid = int(mask.sum())
+    removed = int((mask & ~got).sum())
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    filter_ms = time_ms(lambda: density_inlier_mask(xyz, mask), 5)
+    above_gb = torch.cuda.max_memory_allocated() / 1e9 - before_gb
+    log(f"clutter filter, {xyz.shape[0]} clouds of {xyz.shape[1]} slots: "
+        f"{flips} of {valid} valid slots flip against the plain version on "
+        f"the CPU; removes {removed}; {filter_ms:.3f} ms a batch; "
+        f"{above_gb:.2f} GB above the memory allocated before it")
+    if flips > 0.01 * valid:
+        raise AssertionError("clutter filter: the card and the CPU disagree "
+                             "on more than 1% of the slots")
+
+    # that batch through all scales under the sync-debug mode
+    draws8 = reg.make_draws(statics, torch.Generator().manual_seed(5), dev,
+                            batch=BATCH)
+    scales = tuple(range(statics.num_scales))
+    reg._register_batch(models, statics, src8, tgt8, draws8, scales, False)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            reg._register_batch(models, statics, src8, tgt8, draws8, scales,
+                                False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+             for w in caught if "called a synchronizing" in str(w.message)]
+    log(f"gate batch of {BATCH} pairs, all scales, prefilter and IRLS, under "
+        f"sync-debug mode: {len(syncs)} synchronizing calls "
+        f"{sorted(set(syncs))}")
+    if syncs:
+        raise AssertionError("a gate batch makes the host wait for the card")
+    return dict(clouds=int(xyz.shape[0]), flips=flips, valid=valid,
+                removed=removed, ms=filter_ms, memory_above_before_gb=above_gb)
+
+
+def run_harness(torch, reg, models, dev):
+    """Phase 9: both harness functions on hard pairs, every pose against
+    ``register_batch`` with the same clouds and draws."""
+    from bufferx_tpu_torch.core import se3
+    from bufferx_tpu_torch.eval.harness import (
+        evaluate_pairs,
+        evaluate_pairs_batched,
+    )
+    from bufferx_tpu_torch.tools import exp_hard
+
+    cfg = exp_hard.gate_config("moments", SNAPSHOT)
+    statics = reg.PipelineStatics.from_config(cfg)
+    cell = exp_hard.build_cells(False)[7]        # overlap 0.75, half-voxel
+    samples = [dict(src_points=s, tgt_points=t, relt_pose=T, src_id=f"s{i}",
+                    tgt_id=f"t{i}", is_aligned_to_global_z=False)
+               for i, (s, t, T) in enumerate(exp_hard.cell_pairs(
+                   cell, 7, 2 * BATCH, 24000, 0.025, 20240))]
+    out_dir = os.path.join(HERE, "chiprun_out", "harness")
+    gen = torch.Generator().manual_seed(9)
+    seq_draws = [reg.make_draws(statics, gen, dev) for _ in range(4)]
+    batch_draws = [reg.make_draws(statics, gen, dev, batch=BATCH)
+                   for _ in range(2)]
+
+    def reference(idx, draws):
+        srcs = [reg.prepare_cloud(samples[i]["src_points"], cfg, seed=2 * i,
+                                  device=dev) for i in idx]
+        tgts = [reg.prepare_cloud(samples[i]["tgt_points"], cfg,
+                                  seed=2 * i + 1, device=dev) for i in idx]
+        return reg.register_batch(cfg, srcs, tgts, models, draws=draws,
+                                  device=dev).pose
+
+    def check(label, summary, refs):
+        worst = 0.0
+        for row, ref in zip(summary["rows"], refs):
+            worst = max(worst, float(se3.compute_rte(
+                torch.as_tensor(row["pose"], device=dev), ref)))
+        log(f"harness, {label}: recall {summary['recall']:.3f} over "
+            f"{summary['num_pairs']} pairs, model time "
+            f"{summary['model_time_mean'] * 1e3:.1f} ms a pair"
+            + (f", {summary['pairs_per_second']:.2f} pairs/s"
+               if "pairs_per_second" in summary else "")
+            + f"; poses within {worst:.2e} m of register_batch's")
+        if worst > 1e-5:
+            raise AssertionError(f"harness, {label}: a pose differs from "
+                                 "register_batch's by more than 1e-5 m")
+        return dict(recall=summary["recall"], num_pairs=summary["num_pairs"],
+                    model_time_mean_s=summary["model_time_mean"],
+                    pairs_per_second=summary.get("pairs_per_second"),
+                    worst_vs_register_batch_m=worst)
+
+    refs = [reference([i], reg.stack_draws([d]))
+            for i, d in enumerate(seq_draws)]
+    out = {}
+    for timing in (False, True):
+        summary = evaluate_pairs(
+            cfg, samples[:4], models, enable_timing=timing,
+            csv_path=os.path.join(out_dir, f"pairs_timing{int(timing)}.csv"),
+            draws=seq_draws, device=dev)
+        out[f"evaluate_pairs, timing {timing}"] = check(
+            f"evaluate_pairs, timing {timing}", summary, refs)
+        if timing and not all(r["desc_time"] > 0 and r["pose_optim_time"] > 0
+                              for r in summary["rows"]):
+            raise AssertionError("harness: a timed phase took no time")
+    summary = evaluate_pairs_batched(
+        cfg, samples, models, batch_size=BATCH,
+        csv_path=os.path.join(out_dir, "batched.csv"), draws=batch_draws,
+        device=dev)
+    refs = torch.cat([reference(range(b * BATCH, (b + 1) * BATCH), d)
+                      for b, d in enumerate(batch_draws)])
+    out["evaluate_pairs_batched"] = check("evaluate_pairs_batched, B = 8",
+                                          summary, refs)
+    return out
 
 
 def main() -> int:
@@ -997,6 +1214,12 @@ def main() -> int:
             raise AssertionError(f"{name}: card and CPU paths disagree on the "
                                  "small batch")
 
+    # ---- 8. the quality gate at full width ----------------------------------
+    launches["gate"], gate = run_gate(torch, reg, cuda_build, models, dev)
+
+    # ---- 9. the evaluation harness ----------------------------------------
+    harness = run_harness(torch, reg, models, dev)
+
     # ---- result lines -----------------------------------------------------
     out = []
     for kr in kernels:
@@ -1015,6 +1238,7 @@ def main() -> int:
             **kr.get("extra", {}),
         ))
     print(json.dumps({"batched": list(batched.values())}), flush=True)
+    print(json.dumps({"gate": gate, "harness": harness}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
