@@ -1,10 +1,8 @@
 """Typed configuration: the port's own copy of the serving-path dataclasses.
 
-Mirrors :mod:`bufferx_tpu.config` field for field (names, defaults) for the
-parts the ported path reads: data, test thresholds, patch embedder,
-matching, and the static capacities. Training and optimizer settings come
-with the training slice (``outdoor_base`` sets some of them in the JAX
-package; here it sets the rest). ``make_cfg`` knows every preset of the
+Mirrors :mod:`bufferx_tpu.config` field for field (names, defaults): data,
+two-stage training, test thresholds, the optimizer schedule, patch embedder,
+matching, and the static capacities. ``make_cfg`` knows every preset of the
 JAX package.
 """
 
@@ -16,7 +14,9 @@ from typing import Optional, Tuple
 
 __all__ = [
     "DataConfig",
+    "TrainConfig",
     "TestConfig",
+    "OptimConfig",
     "PatchConfig",
     "MatchConfig",
     "CapacityConfig",
@@ -41,12 +41,41 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    epoch: int = 10
+    max_iter: int = 50000
+    batch_size: int = 1
+    pos_num: int = 512
+    augmentation_noise: float = 0.001
+    pretrain_model: str = ""
+    all_stage: Tuple[str, ...] = ("Desc", "Pose")
+    rotation_augment: str = "so3"      # "so3" | "so2" | "none", per cloud
+
+
+@dataclass(frozen=True)
 class TestConfig:
     experiment_id: str = "threedmatch"
     pose_refine: bool = False
     enable_timing: bool = False
     rte_thresh: float = 0.3
     rre_thresh: float = 15.0
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    lr_desc: float = 0.001
+    lr_pose: float = 0.001
+    lr_decay: float = 0.50
+    weight_decay: float = 1e-6
+    scheduler_interval_desc: int = 2
+    scheduler_interval_pose: int = 1
+
+    def lr(self, stage: str) -> float:
+        return self.lr_desc if stage == "Desc" else self.lr_pose
+
+    def scheduler_interval(self, stage: str) -> int:
+        return (self.scheduler_interval_desc if stage == "Desc"
+                else self.scheduler_interval_pose)
 
 
 @dataclass(frozen=True)
@@ -106,7 +135,9 @@ class CapacityConfig:
 @dataclass(frozen=True)
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     patch: PatchConfig = field(default_factory=PatchConfig)
     match: MatchConfig = field(default_factory=MatchConfig)
     capacity: CapacityConfig = field(default_factory=CapacityConfig)
@@ -134,7 +165,11 @@ def outdoor_base() -> Config:
     """Outdoor profile: LiDAR scale (reference ``OutdoorBaseConfig``)."""
     return Config(
         data=DataConfig(downsample=0.05, voxel_size_0=0.30),
+        train=TrainConfig(epoch=50, augmentation_noise=0.01,
+                          rotation_augment="so2"),
         test=TestConfig(rte_thresh=2.0, rre_thresh=5.0),
+        optim=OptimConfig(scheduler_interval_desc=10,
+                          scheduler_interval_pose=5),
         patch=PatchConfig(des_r=3.0, is_aligned_to_global_z=True),
         match=MatchConfig(
             dist_th=0.30, inlier_th=2.0, similar_th=0.9, confidence=1.0

@@ -1,8 +1,9 @@
 """Hard synthetic registration benchmark generator.
 
 The port's own copy of :mod:`bufferx_tpu.data.hardsynth` (numpy only):
-the same numpy streams give the same arrays bit for bit. The training
-stream (``hard_training_stream``) comes with the training slice.
+the same numpy streams give the same arrays bit for bit, and
+:func:`hard_training_stream` builds training batches from them
+(:mod:`bufferx_tpu_torch.data.training`).
 
 The round-1 quality gate (``data/modelnet.py`` + ``scripts/exp_quality.py``)
 was circular and easy: src/tgt crops shared the *same point samples*, the
@@ -45,6 +46,7 @@ __all__ = [
     "eval_scene",
     "sample_scene",
     "hard_pair",
+    "hard_training_stream",
 ]
 
 
@@ -358,3 +360,45 @@ def hard_pair(
     T[:3, 3] = rs.uniform(-mt, mt, 3)
     tgt = (tgt @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
     return src.astype(np.float32), tgt, T
+
+
+def hard_training_stream(
+    cfg,
+    num_batches: int,
+    seed: int = 0,
+    num_points: int = 6000,
+    family: str = "train",
+    overlap_range: Tuple[float, float] = (0.25, 0.9),
+    noise_range: Tuple[float, float] = (0.0, 1.0),
+    density_choices: Tuple[float, ...] = (1.0, 1.0, 2.0, 4.0, 8.0),
+    clutter_choices: Tuple[float, ...] = (0.0, 0.0, 0.05, 0.1),
+    host_arrays: bool = False,
+    device="cuda",
+):
+    """Training batches from the TRAIN family with randomized overlap,
+    noise (in voxels), density mismatch and clutter: batch i from
+    ``RandomState(seed * 100003 + i)``. The range and choice arguments are
+    the curriculum's axes. On the device path the correspondence noise
+    comes from a generator seeded with ``seed`` on ``device``."""
+    import torch
+
+    from bufferx_tpu_torch.data.training import build_training_batch
+    from bufferx_tpu_torch.device import resolve_device
+
+    voxel = cfg.data.voxel_size_0
+    gen = None if host_arrays else torch.Generator(
+        resolve_device(device)).manual_seed(seed)
+    for i in range(num_batches):
+        rs = np.random.RandomState(seed * 100003 + i)
+        src, tgt, T = hard_pair(
+            rs,
+            family=family,
+            num_points=num_points,
+            overlap_ratio=rs.uniform(*overlap_range),
+            noise=rs.uniform(*noise_range) * voxel,
+            density_ratio=float(rs.choice(list(density_choices))),
+            outlier_frac=float(rs.choice(list(clutter_choices))),
+            extent=1.5 if family == "train" else 3.0,
+        )
+        yield build_training_batch(cfg, src, tgt, T, rs, gen,
+                                   host_arrays=host_arrays, device=device)

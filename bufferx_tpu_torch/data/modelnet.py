@@ -1,15 +1,17 @@
 """Synthetic object-scale registration pairs (the port's own copy).
 
 Counterpart of :mod:`bufferx_tpu.data.modelnet` (numpy only, the same
-random streams): a procedural object with distinctive local geometry, and
-a full-overlap pair under a random SE(3) for end-to-end runs without data.
+random streams): a procedural object with distinctive local geometry, a
+partial-overlap pair cut from it (the training streams' pairs), and a
+full-overlap pair under a random SE(3) for end-to-end runs without data.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_object", "synthetic_pair_full_overlap"]
+__all__ = ["synthetic_object", "make_pair_from_points", "synthetic_pair",
+           "synthetic_pair_full_overlap"]
 
 
 def synthetic_object(rs: np.random.RandomState, num_points: int = 8192) -> np.ndarray:
@@ -54,6 +56,31 @@ def _random_pose(rs: np.random.RandomState, max_angle=np.pi, max_trans=0.5):
     T[:3, :3] = R
     T[:3, 3] = rs.uniform(-max_trans, max_trans, size=3)
     return T
+
+
+def make_pair_from_points(points: np.ndarray, rs: np.random.RandomState,
+                          overlap: float = 0.7, noise: float = 0.005):
+    """Half-space crops with the given overlap; the target gets a random
+    SE(3). Returns (src, tgt, T_gt) with tgt ~ T_gt @ src on the overlap."""
+    d = rs.randn(3)
+    d /= np.linalg.norm(d)
+    proj = points @ d
+    lo, hi = np.quantile(proj, [1.0 - overlap, overlap])
+    src = points[proj <= hi]
+    tgt_base = points[proj >= lo]
+
+    T = _random_pose(rs)
+    tgt = tgt_base @ T[:3, :3].T + T[:3, 3]
+    src = src + rs.randn(*src.shape).astype(np.float32) * noise
+    tgt = tgt + rs.randn(*tgt.shape).astype(np.float32) * noise
+    return src.astype(np.float32), tgt.astype(np.float32), T
+
+
+def synthetic_pair(rs: np.random.RandomState, num_points: int = 8192,
+                   overlap: float = 0.7, noise: float = 0.002):
+    """Procedural object -> partial-overlap pair with known ground truth."""
+    obj = synthetic_object(rs, num_points)
+    return make_pair_from_points(obj, rs, overlap=overlap, noise=noise)
 
 
 def synthetic_pair_full_overlap(rs: np.random.RandomState,

@@ -91,6 +91,14 @@ def in_radius(patches: torch.Tensor, cells: torch.Tensor,
     return ((dx * dx + dy * dy) + dz * dz) <= radius2
 
 
+def _no_grad_input(name: str, patches: torch.Tensor) -> None:
+    """The kernels read point data only and have no backward: no gradient
+    may be asked of their inputs (training passes point data alone)."""
+    if patches.requires_grad:
+        raise ValueError(f"{name}: the patch points require grad, and the "
+                         "cell kernels pass no gradient")
+
+
 def _ring_len(num_cells: int, ring_len) -> int:
     """The ring length to use: 1 (every cell its own ring) when not given."""
     if ring_len is None:
@@ -240,6 +248,7 @@ def spt_cell_query(patches, mask, cells, radius: float, nsample: int, *,
     """Dispatch: the plain version for CPU tensors, K4 for CUDA tensors.
     ``ring_len``: the number of consecutive cells that share a ring about
     the z axis (the grid's ``azi_n``)."""
+    _no_grad_input("spt_cell_query", patches)
     if patches.is_cuda:
         return spt_cell_query_cuda(patches, mask, cells, radius, nsample,
                                    ring_len=ring_len)
@@ -303,6 +312,7 @@ def spt_moments(patches, mask, cells, radius2: float, *,
     """Dispatch: the plain version for CPU tensors, K3 for CUDA tensors.
     ``ring_len``: the number of consecutive cells that share a ring about
     the z axis (the grid's ``azi_n``)."""
+    _no_grad_input("spt_moments", patches)
     if patches.is_cuda:
         return spt_moments_cuda(patches, mask, cells, radius2,
                                 ring_len=ring_len)

@@ -1,13 +1,18 @@
-"""SO(2) rotation head: cyclic-shift cost volume + 3D conv stack.
+"""Matching heads: equivariant correlation and the SO(2) cost volume.
 
-Counterpart of :class:`bufferx_tpu.models.heads.CostVolume` (factored form).
+Counterpart of :mod:`bufferx_tpu.models.heads`. :func:`equi_match_scores`
+correlates two equivariant maps over every azimuth shift (the Desc stage's
+classification logits). :class:`CostVolume` is the factored form of the
+JAX head.
 The cost volume ``cost[s, ke, l] = des1[ke, (l-s) % L] - des2[ke, l]`` is a
 circulant minus a shift-constant tensor and the first conv is linear, so
 layer 1 is computed without materializing it: a circular 2D conv of des1
 with the anti-diagonal-summed kernel, minus a VALID 2D conv of des2 with the
 shift-summed kernel, rebuilt over the shifts by rolls. Nine more 3D convs
 and a softmax expectation over the azimuth bins give a continuous rotation
-index per correspondence.
+index per correspondence. In training mode every BatchNorm uses the
+batch's statistics (in float32) and records them in ``bn_stats``
+(:mod:`bufferx_tpu_torch.models.layers`).
 """
 
 from __future__ import annotations
@@ -16,9 +21,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bufferx_tpu_torch.models.layers import ConvBNRelu, batch_norm
+from bufferx_tpu_torch.models.layers import ConvBNRelu
 
-__all__ = ["CostVolume"]
+__all__ = ["equi_match_scores", "CostVolume"]
+
+
+def equi_match_scores(des1: torch.Tensor, des2: torch.Tensor,
+                      azi_n: int) -> torch.Tensor:
+    """Correlation over cyclic azimuth shifts: [B, C, K, L] x2 -> [B, azi_n],
+    ``out[b, s] = sum des1[b, c, k, (l - s) % L] des2[b, c, k, l]``."""
+    l_idx = torch.arange(azi_n, device=des1.device)
+    gather = (l_idx[None, :] - l_idx[:, None]) % azi_n        # [shift, L]
+    rolled = des1[..., gather]                                # [B, C, K, S, L]
+    return torch.einsum("bcksl,bckl->bs", rolled, des2)
 
 
 class FactoredCostStem(ConvBNRelu):
@@ -31,7 +46,8 @@ class FactoredCostStem(ConvBNRelu):
                          compute_dtype=compute_dtype)
         self.azi_n = azi_n
 
-    def forward(self, des1: torch.Tensor, des2: torch.Tensor) -> torch.Tensor:
+    def forward(self, des1: torch.Tensor, des2: torch.Tensor,
+                bn_stats: dict | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         L = self.azi_n
         k = self.weight.to(dt)                        # [O, I, ds, dke, dl]
@@ -55,7 +71,7 @@ class FactoredCostStem(ConvBNRelu):
             dim=2,
         )                                             # [B, O, S, Ke-2, L-2]
         x = recon - C2d[:, :, None] + self.bias.to(dt).view(1, -1, 1, 1, 1)
-        return torch.relu(batch_norm(x, self.bn_mean, self.bn_var))
+        return torch.relu(self.norm(x, bn_stats))          # f32, both modes
 
 
 class CostVolume(nn.Module):
@@ -82,10 +98,11 @@ class CostVolume(nn.Module):
                                  use_relu=False, compute_dtype=compute_dtype))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, des1: torch.Tensor, des2: torch.Tensor) -> torch.Tensor:
-        x = self.stem(des1, des2)
+    def forward(self, des1: torch.Tensor, des2: torch.Tensor,
+                bn_stats: dict | None = None) -> torch.Tensor:
+        x = self.stem(des1, des2, bn_stats)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, bn_stats)
         logits = x.reshape(x.shape[0], self.azi_n)
         prob = torch.softmax(logits, dim=-1)
         bins = torch.arange(self.azi_n, dtype=prob.dtype, device=prob.device)

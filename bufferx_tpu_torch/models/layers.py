@@ -10,6 +10,15 @@ once when loading (``tools/weights.py``).
 mode: the conv and its bias add run in the compute dtype, BatchNorm (from
 running statistics, eps 1e-5) runs in float32 on that result and rounds
 back to the compute dtype, and the output is float32.
+
+In training mode (``module.train()``, the JAX layers' ``train=True``)
+BatchNorm normalizes with the batch's statistics in float32, as flax's
+``BatchNorm`` with ``use_fast_variance=True`` computes them: the mean and
+the biased variance ``mean(x^2) - mean(x)^2`` clamped at 0, over every axis
+but the channels. The forward does not touch the running statistics: it
+records the batch's (mean, var) in the ``bn_stats`` dict it is given, keyed
+by the layer, and :func:`running_stats` folds them into new running
+statistics (``0.9 old + 0.1 batch``) for the caller to store.
 """
 
 from __future__ import annotations
@@ -27,9 +36,11 @@ from bufferx_tpu_torch.kernels.conv_pallas import (
 )
 
 __all__ = ["pad_cyl_2d", "pad_cyl_3d", "ConvBNRelu", "CylindricalConvNet",
-           "FusedCylindricalConvNet", "batch_norm"]
+           "FusedCylindricalConvNet", "at_least_f32", "batch_norm",
+           "batch_moments", "running_stats"]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
 
 
 def _wrap_last(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -53,26 +64,64 @@ def pad_cyl_3d(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.pad(_wrap_last(x, p), (0, 0, p, p, 0, 0))
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when wider (flax computes BatchNorm in
+    at least float32; a float64 model stays float64, which the tests use as
+    a reference)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def batch_norm(x: torch.Tensor, mean, var, scale=None, bias=None,
                channel_dim: int = 1) -> torch.Tensor:
-    """Inference BatchNorm in float32, flax's order of operations."""
+    """BatchNorm from given statistics in (at least) float32, flax's order
+    of operations."""
     shape = [1] * x.ndim
     shape[channel_dim] = -1
     mul = torch.rsqrt(var + BN_EPS)
     if scale is not None:
         mul = mul * scale
-    y = (x.to(torch.float32) - mean.view(shape)) * mul.view(shape)
+    y = (at_least_f32(x) - mean.view(shape)) * mul.view(shape)
     if bias is not None:
         y = y + bias.view(shape)
     return y
 
 
+def batch_moments(x: torch.Tensor, channel_dim: int = 1):
+    """Training BatchNorm statistics of ``x`` per channel, in (at least)
+    float32: the mean and the biased variance ``mean(x^2) - mean(x)^2``
+    clamped at 0."""
+    x = at_least_f32(x)
+    dims = [d for d in range(x.ndim) if d != channel_dim % x.ndim]
+    mean = torch.mean(x, dim=dims)
+    mean2 = torch.mean(x * x, dim=dims)
+    return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
+
+
+def running_stats(model: nn.Module, bn_stats: dict,
+                  momentum: float = BN_MOMENTUM) -> dict:
+    """New running statistics of ``model``'s BatchNorm layers from the batch
+    statistics a training forward recorded in ``bn_stats``: ``{buffer name:
+    momentum * old + (1 - momentum) * batch}`` for every ``bn_mean`` and
+    ``bn_var`` of a layer in ``bn_stats`` (detached), from the buffers as
+    they are."""
+    out = {}
+    for name, mod in model.named_modules():
+        if mod not in bn_stats:
+            continue
+        prefix = f"{name}." if name else ""
+        for buf, batch in zip(("bn_mean", "bn_var"), bn_stats[mod]):
+            old = getattr(mod, buf)
+            out[prefix + buf] = momentum * old + (1 - momentum) * batch.detach()
+    return out
+
+
 class ConvBNRelu(nn.Module):
-    """VALID conv + optional inference BatchNorm + optional ReLU.
+    """VALID conv + optional BatchNorm + optional ReLU.
 
     ``weight`` is [out, in, *kernel]; BatchNorm keeps its running
     statistics in the buffers ``bn_mean``/``bn_var`` and, when affine,
-    ``bn_scale``/``bn_bias``."""
+    ``bn_scale``/``bn_bias``. In training mode BatchNorm uses the batch's
+    statistics and records them in ``bn_stats`` (see the module notes)."""
 
     def __init__(self, in_features: int, features: int, kernel: Sequence[int],
                  use_bn: bool = True, use_relu: bool = True,
@@ -93,18 +142,31 @@ class ConvBNRelu(nn.Module):
                 self.bn_bias = nn.Parameter(torch.zeros(features))
         self.bn_affine = bn_affine
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def norm(self, y: torch.Tensor, bn_stats: dict | None = None,
+             channel_dim: int = 1) -> torch.Tensor:
+        """BatchNorm in float32: from the running statistics, or in training
+        mode from the batch's, which go into ``bn_stats`` when given."""
+        scale = self.bn_scale if self.bn_affine else None
+        bias = self.bn_bias if self.bn_affine else None
+        if not self.training:
+            return batch_norm(y, self.bn_mean, self.bn_var, scale, bias,
+                              channel_dim)
+        mean, var = batch_moments(y, channel_dim)
+        if bn_stats is not None:
+            bn_stats[self] = (mean, var)
+        return batch_norm(y, mean, var, scale, bias, channel_dim)
+
+    def forward(self, x: torch.Tensor,
+                bn_stats: dict | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         conv = F.conv2d if len(self.kernel) == 2 else F.conv3d
         y = conv(x.to(dt), self.weight.to(dt))
         y = y + self.bias.to(dt).view((1, -1) + (1,) * len(self.kernel))
         if self.use_bn:
-            y = batch_norm(
-                y, self.bn_mean, self.bn_var,
-                self.bn_scale if self.bn_affine else None,
-                self.bn_bias if self.bn_affine else None,
-            ).to(dt)
-        y = y.to(torch.float32)
+            y = self.norm(y, bn_stats)
+            if not self.training:     # serving keeps the compute dtype
+                y = y.to(dt)
+        y = at_least_f32(y)
         return torch.relu(y) if self.use_relu else y
 
 
@@ -131,10 +193,11 @@ class CylindricalConvNet(nn.Module):
                                  use_relu=False, compute_dtype=compute_dtype))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.layers[0](pad_cyl_3d(x, 3))[:, :, 0]     # rad 3 -> 1
+    def forward(self, x: torch.Tensor,
+                bn_stats: dict | None = None) -> torch.Tensor:
+        x = self.layers[0](pad_cyl_3d(x, 3), bn_stats)[:, :, 0]  # rad 3 -> 1
         for layer in self.layers[1:]:
-            x = layer(pad_cyl_2d(x, 3))
+            x = layer(pad_cyl_2d(x, 3), bn_stats)
         return x
 
 
@@ -179,7 +242,8 @@ class FusedCylindricalConvNet(CylindricalConvNet):
         self.folded_b = b.to(dev)
         self.packed_w = pack_cyl_weights(self.folded_w)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                bn_stats: dict | None = None) -> torch.Tensor:
         if self.training:
             raise RuntimeError("FusedCylindricalConvNet is serving-only: "
                                "call .eval() before the forward")

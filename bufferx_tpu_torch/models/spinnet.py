@@ -1,4 +1,4 @@
-"""Mini-SpinNet patch embedder with the gated pool, "moments" or "sampled".
+"""Mini-SpinNet patch embedder, "moments" or "sampled", gated or softmax pool.
 
 Counterpart of :class:`bufferx_tpu.models.spinnet.MiniSpinNet`. Input is
 the moments-major cell features ``[K, 10, G]`` (``mode="moments"``) or the
@@ -7,8 +7,13 @@ reference descriptor: a point MLP with a max over the samples); G = rad_n *
 ele_n * azi_n. Output is a dict with ``desc`` [K, 32] (unit invariant
 descriptors) and ``equi`` [K, 32, ele_n, azi_n] (equivariant maps, unit over
 channels), the JAX package's layouts. ``fused_conv`` runs the backbone as
-the fused conv stack (kernel K5) under the JAX package's condition. The
-softmax pool is not ported yet and raises.
+the fused conv stack (kernel K5) under the JAX package's condition.
+``pool`` is the attention head: "gated" (the reference's: two 1x1 convs
+with affine BN and ReLU, mean-pooled) or "softmax" (a bare 1x1 conv whose
+logits are normalized by a softmax over the grid). ``width`` multiplies the
+backbone's channels. In training mode (``.train()``) every BatchNorm uses
+the batch's statistics and records them in ``bn_stats``
+(:mod:`bufferx_tpu_torch.models.layers`).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from bufferx_tpu_torch.models.layers import (
     ConvBNRelu,
     CylindricalConvNet,
     FusedCylindricalConvNet,
-    batch_norm,
+    at_least_f32,
 )
 
 __all__ = ["MiniSpinNet", "safe_unit"]
@@ -42,13 +47,15 @@ class PointwiseStem(ConvBNRelu):
         super().__init__(in_features, features, (1, 1), bn_affine=True,
                          compute_dtype=compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                bn_stats: dict | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         w = self.weight[:, :, 0, 0].t().to(dt)                 # [C_in, 16]
         y = torch.matmul(x.to(dt), w) + self.bias.to(dt)
-        y = batch_norm(y, self.bn_mean, self.bn_var, self.bn_scale,
-                       self.bn_bias, channel_dim=-1).to(dt)
-        return torch.relu(y.to(torch.float32))
+        y = self.norm(y, bn_stats, channel_dim=-1)
+        if not self.training:
+            y = y.to(dt)
+        return torch.relu(at_least_f32(y))
 
 
 class MomentsMajorStem(PointwiseStem):
@@ -60,8 +67,9 @@ class MomentsMajorStem(PointwiseStem):
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(features, in_features, compute_dtype)
 
-    def forward(self, x_mm: torch.Tensor) -> torch.Tensor:
-        return super().forward(x_mm.transpose(1, 2))
+    def forward(self, x_mm: torch.Tensor,
+                bn_stats: dict | None = None) -> torch.Tensor:
+        return super().forward(x_mm.transpose(1, 2), bn_stats)
 
 
 class MiniSpinNet(nn.Module):
@@ -71,13 +79,14 @@ class MiniSpinNet(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  fused_conv: bool = False):
         super().__init__()
-        if pool != "gated":
-            raise NotImplementedError(
-                f"MiniSpinNet pool={pool!r}: only pool='gated' is ported")
+        if pool not in ("gated", "softmax"):
+            raise ValueError(f"MiniSpinNet pool={pool!r}: expected 'gated' "
+                             "or 'softmax'")
         if mode not in ("moments", "sampled"):
             raise ValueError(f"MiniSpinNet mode={mode!r}: expected 'moments' "
                              "or 'sampled'")
         self.mode = mode
+        self.pool = pool
         self.rad_n, self.ele_n, self.azi_n = rad_n, ele_n, azi_n
         stem = MomentsMajorStem if mode == "moments" else PointwiseStem
         self.stem = stem(16, compute_dtype=compute_dtype)
@@ -89,24 +98,34 @@ class MiniSpinNet(nn.Module):
                          else CylindricalConvNet(dim, width, compute_dtype))
         self.att_hidden = ConvBNRelu(dim, 16, (1, 1), bn_affine=True,
                                      compute_dtype=compute_dtype)
-        self.att_gate = ConvBNRelu(16, 1, (1, 1), bn_affine=True,
-                                   compute_dtype=compute_dtype)
+        if pool == "softmax":
+            self.att_gate = ConvBNRelu(16, 1, (1, 1), use_bn=False,
+                                       use_relu=False,
+                                       compute_dtype=compute_dtype)
+        else:
+            self.att_gate = ConvBNRelu(16, 1, (1, 1), bn_affine=True,
+                                       compute_dtype=compute_dtype)
 
-    def forward(self, x_in: torch.Tensor) -> dict:
+    def forward(self, x_in: torch.Tensor,
+                bn_stats: dict | None = None) -> dict:
         k = x_in.shape[0]
         g = self.rad_n * self.ele_n * self.azi_n
         if self.mode == "moments":
             if tuple(x_in.shape[1:]) != (10, g):
                 raise ValueError(f"expected moments-major [K, 10, {g}], got "
                                  f"{tuple(x_in.shape)}")
-            x = self.stem(x_in)                                # [K, G, 16]
+            x = self.stem(x_in, bn_stats)                      # [K, G, 16]
         else:
             if x_in.ndim != 4 or x_in.shape[1] != g or x_in.shape[3] != 3:
                 raise ValueError(f"expected SPT samples [K, {g}, ns, 3], got "
                                  f"{tuple(x_in.shape)}")
-            x = torch.amax(self.stem(x_in), dim=2)             # [K, G, 16]
+            x = torch.amax(self.stem(x_in, bn_stats), dim=2)   # [K, G, 16]
         x = x.reshape(k, self.rad_n, self.ele_n, self.azi_n, 16)
-        x = self.backbone(x.permute(0, 4, 1, 2, 3))            # [K, 32, e, a]
-        w = self.att_gate(self.att_hidden(x))                  # [K, 1, e, a]
-        f = torch.mean(x * w, dim=(2, 3))                      # [K, 32]
+        x = self.backbone(x.permute(0, 4, 1, 2, 3), bn_stats)  # [K, 32, e, a]
+        w = self.att_gate(self.att_hidden(x, bn_stats), bn_stats)
+        if self.pool == "softmax":                             # w: logits
+            att = torch.softmax(w.reshape(k, -1), dim=-1).reshape(w.shape)
+            f = torch.sum(x * att, dim=(2, 3))                 # [K, 32]
+        else:
+            f = torch.mean(x * w, dim=(2, 3))                  # [K, 32]
         return {"desc": safe_unit(f), "equi": safe_unit(x, dim=1)}

@@ -39,13 +39,15 @@ Random draws are explicit (:class:`Draws`): the strip offsets of the
 stratified query and the RANSAC rank draws. By default they come from a
 ``torch.Generator``; a test can pass the JAX package's draws instead.
 Options that the JAX package has but the port does not yet (other patch
-queries, exact top-k sampling, the softmax pool, scale-vmapped or
-scale-batched convs) raise ``NotImplementedError``.
+queries, exact top-k sampling, scale-vmapped or scale-batched convs) raise
+``NotImplementedError``. :func:`init_params` gives fresh weights with flax's
+initializers, for training.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import NamedTuple, Sequence
 
@@ -84,6 +86,7 @@ __all__ = [
     "RegistrationResult",
     "PipelineStatics",
     "build_models",
+    "init_params",
     "make_draws",
     "prepare_cloud",
     "stack_clouds",
@@ -226,7 +229,8 @@ def _check_ported(s: PipelineStatics) -> None:
     if s.exact_topk:
         missing.append("exact_topk=True (exact top-k patch and cell "
                        "sampling)")
-    if s.desc_mode not in ("moments", "sampled") or s.desc_pool != "gated":
+    if s.desc_mode not in ("moments", "sampled") or \
+            s.desc_pool not in ("gated", "softmax"):
         missing.append(f"desc_mode={s.desc_mode!r}/desc_pool={s.desc_pool!r}")
     if s.vmap_scales or s.scale_batch_conv:
         missing.append("vmap_scales/scale_batch_conv")
@@ -257,6 +261,44 @@ def build_models(statics: PipelineStatics, state_dicts: dict,
     desc.load_state_dict(state_dicts["desc"], strict=True)
     pose.load_state_dict(state_dicts["pose"], strict=True)
     return Models(desc.to(dev).eval(), pose.to(dev).eval())
+
+
+def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal truncated at two standard deviations,
+    scaled to variance 1 / fan_in (fan_in: all kernel axes but the output
+    channels), drawn by the inverse CDF as ``jax.random.truncated_normal``
+    draws it."""
+    fan_in = w[0].numel()
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(w.shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    z = math.sqrt(2.0) * torch.erfinv(lo + (hi - lo) * u)
+    w.copy_(torch.clamp(z, -2.0, 2.0).to(w.device) * std)
+
+
+@torch.no_grad()
+def init_params(cfg: Config, generator: torch.Generator) -> dict:
+    """Fresh weights for both stages, as flax initializes the JAX package's
+    models: lecun-normal conv kernels, zero conv biases, unit BatchNorm
+    scales, zero BatchNorm biases, zero running means and unit running
+    variances. Returns {"desc": state_dict, "pose": state_dict} (CPU
+    tensors) for :class:`MiniSpinNet` and :class:`CostVolume`, drawn from
+    ``generator`` module by module in state-dict order."""
+    p = cfg.patch
+    desc = MiniSpinNet(p.rad_n, p.ele_n, p.azi_n, mode=p.desc_mode,
+                       pool=p.desc_pool, width=p.desc_width)
+    pose = CostVolume(p.azi_n)
+    out = {}
+    for name, model in (("desc", desc), ("pose", pose)):
+        for key, t in model.state_dict(keep_vars=True).items():
+            leaf = key.rsplit(".", 1)[1]
+            if leaf == "weight":
+                _lecun_normal_(t, generator)
+            else:
+                t.fill_(1.0 if leaf in ("bn_scale", "bn_var") else 0.0)
+        out[name] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return out
 
 
 def prepare_cloud(xyz: np.ndarray, cfg: Config, seed: int = 0,

@@ -1,4 +1,4 @@
-"""Checkpoint loading: flax msgpack -> PyTorch state dicts, no flax needed.
+"""Checkpoints: flax msgpack <-> PyTorch state dicts, no flax needed.
 
 The JAX package saves ``{params, batch_stats}`` trees with
 ``flax.serialization.to_bytes``: standard msgpack maps whose array leaves
@@ -12,6 +12,13 @@ numpy only, because the card's machine has neither ``msgpack`` nor ``flax``.
 (the inverse of ``bufferx_tpu/tools/torch_import.py``): conv kernels
 HWIO/DHWIO -> OIHW/OIDHW, BatchNorm ``scale``/``bias`` -> ``bn_scale``/
 ``bn_bias``, running ``mean``/``var`` -> ``bn_mean``/``bn_var``.
+
+The other way, :func:`numpy_from_params` turns a port state dict back into
+the flax tree and :func:`msgpack_dumps` writes a tree in the bytes
+``flax.serialization.to_bytes`` gives for it (keys in insertion order),
+arrays split into chunks above ``MAX_CHUNK_SIZE`` bytes as
+flax splits them. :func:`save_snapshot` writes a snapshot both packages'
+loaders read: ``<dir>/{Desc,Pose}/best.msgpack`` and ``config.json``.
 """
 
 from __future__ import annotations
@@ -24,10 +31,17 @@ import numpy as np
 import torch
 
 __all__ = [
+    "MAX_CHUNK_SIZE",
     "msgpack_restore",
+    "msgpack_dumps",
     "params_from_numpy",
+    "numpy_from_params",
+    "save_snapshot",
+    "save_snapshot_config",
     "load_snapshot",
     "load_snapshot_config",
+    "read_checkpoint",
+    "write_checkpoint",
     "DESC_MODULES",
     "POSE_MODULES",
 ]
@@ -122,6 +136,121 @@ class _Reader:
         raise ValueError(f"unsupported msgpack ext code {code}")
 
 
+MAX_CHUNK_SIZE = 2 ** 30      # bytes; flax.serialization's constant
+
+
+def _pack_len(out: bytearray, n: int, small: int, small_max: int,
+              codes: tuple) -> None:
+    """A msgpack length header: ``small | n`` for n < small_max, else one of
+    ``codes`` (8-, 16-, 32-bit lengths; None where the format has none)."""
+    if small is not None and n < small_max:
+        out.append(small | n)
+        return
+    for code, fmt, top in zip(codes, ("B", "H", "I"), (0xFF, 0xFFFF,
+                                                       0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out.append(code)
+            out += struct.pack(">" + fmt, n)
+            return
+    raise ValueError(f"msgpack object too large: {n}")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    """msgpack-python's choice of integer format."""
+    if 0 <= v < 0x80 or -0x20 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q")) if v > 0 \
+        else ((0xD0, "b"), (0xD1, "h"), (0xD2, "i"), (0xD3, "q"))
+    for code, fmt in forms:
+        try:
+            packed = struct.pack(">" + fmt, v)
+        except struct.error:
+            continue
+        out.append(code)
+        out += packed
+        return
+    raise ValueError(f"integer out of msgpack's range: {v}")
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    """``msgpack.packb((shape, dtype name, C-order bytes))``, the payload of
+    flax's array ext type."""
+    out = bytearray()
+    _pack(out, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    return bytes(out)
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out.append(fixed[n])
+    else:
+        _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _chunked(arr: np.ndarray):
+    """flax's ``_chunk``: an array above MAX_CHUNK_SIZE bytes as a map of
+    flat chunks."""
+    step = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    chunks = [flat[i:i + step] for i in range(0, flat.size, step)]
+    return {"__msgpack_chunked_array__": True,
+            "shape": {str(i): d for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _pack(out: bytearray, v, top: bool = False) -> None:
+    if v is None:
+        out.append(0xC0)
+    elif v is True or v is False:
+        out.append(0xC3 if v else 0xC2)
+    elif isinstance(v, np.ndarray):
+        if top and v.size * v.dtype.itemsize > MAX_CHUNK_SIZE:
+            _pack(out, _chunked(v))
+        else:
+            _pack_ext(out, 1, _ndarray_payload(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, 3, _ndarray_payload(np.asarray(v)))
+    elif isinstance(v, int):
+        _pack_int(out, v)
+    elif isinstance(v, float):
+        out.append(0xCB)
+        out += struct.pack(">d", v)
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        _pack_len(out, len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(v, (bytes, bytearray)):
+        _pack_len(out, len(v), None, 0, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif isinstance(v, list):
+        _pack_len(out, len(v), 0x90, 16, (None, 0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif isinstance(v, dict):
+        _pack_len(out, len(v), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, x in v.items():
+            _pack(out, k)
+            _pack(out, x, top=True)
+    else:
+        raise TypeError(f"cannot serialize {type(v).__name__}")
+
+
+def msgpack_dumps(tree) -> bytes:
+    """A tree of dicts (str keys) with numpy arrays, numpy scalars, Python
+    numbers, strings, booleans and None as leaves, in the bytes
+    ``flax.serialization.to_bytes`` writes for it: arrays as ext
+    type 1, numpy scalars as ext type 3, arrays above ``MAX_CHUNK_SIZE``
+    bytes chunked."""
+    out = bytearray()
+    _pack(out, tree, top=True)
+    return bytes(out)
+
+
 def _as_tuple(d):
     return tuple(d[str(i)] for i in range(len(d))) if isinstance(d, dict) else tuple(d)
 
@@ -200,6 +329,46 @@ def params_from_numpy(tree: dict, modules: dict) -> dict:
     return sd
 
 
+def numpy_from_params(state_dict: dict, modules: dict) -> dict:
+    """Port state dict -> ``{"params": ..., "batch_stats": ...}`` numpy tree
+    of the JAX model (the inverse of :func:`params_from_numpy`): conv
+    kernels OIHW/OIDHW -> HWIO/DHWIO, float32 leaves, keys sorted as a JAX
+    pytree orders them."""
+    leaves = {v: k for k, v in _LEAVES.items()}
+    by_len = sorted(modules.items(), key=lambda kv: -len(kv[1]))
+    tree: dict = {}
+    for key, t in state_dict.items():
+        for top, port in by_len:
+            if key.startswith(port + "."):
+                rest = key[len(port) + 1:].split(".")
+                break
+        else:
+            raise KeyError(f"unmapped state-dict entry {key}")
+        mid = ()
+        if len(rest) == 3 and rest[0] == "layers":   # backbone layer i
+            mid = (f"ConvBNRelu_{rest[1]}",)
+        elif len(rest) != 1:
+            raise KeyError(f"unmapped state-dict entry {key}")
+        collection, layer, name = leaves[rest[-1]]
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if rest[-1] == "weight":
+            perm = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[arr.ndim]
+            arr = np.ascontiguousarray(np.transpose(arr, np.argsort(perm)))
+        node = tree.setdefault(collection, {}).setdefault(top, {})
+        for part in mid + (layer,):
+            node = node.setdefault(part, {})
+        node[name] = arr
+    return _sorted(tree)
+
+
+def _sorted(tree):
+    """Keys in sorted order at every level, the order of a JAX pytree (and
+    so of the checkpoints the JAX package writes)."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def load_snapshot_config(snapshot_dir: str) -> dict:
     """Architecture overrides recorded with a snapshot ({} when none)."""
     path = os.path.join(snapshot_dir, "config.json")
@@ -211,12 +380,48 @@ def load_snapshot_config(snapshot_dir: str) -> dict:
             if k in got}
 
 
+def read_checkpoint(path: str, modules: dict) -> dict:
+    """One stage's flax msgpack -> the port model's state dict."""
+    with open(path, "rb") as f:
+        return params_from_numpy(msgpack_restore(f.read()), modules)
+
+
+def write_checkpoint(path: str, state_dict: dict, modules: dict) -> str:
+    """One stage's state dict -> a flax msgpack at ``path``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    data = msgpack_dumps(numpy_from_params(state_dict, modules))
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
 def load_snapshot(snapshot_dir: str) -> dict:
     """``<dir>/{Desc,Pose}/best.msgpack`` -> {"desc": state_dict,
     "pose": state_dict} for :class:`MiniSpinNet` and :class:`CostVolume`."""
-    out = {}
+    return {stage.lower(): read_checkpoint(
+                os.path.join(snapshot_dir, stage, "best.msgpack"), modules)
+            for stage, modules in (("Desc", DESC_MODULES),
+                                   ("Pose", POSE_MODULES))}
+
+
+def save_snapshot_config(snapshot_dir: str, cfg) -> str:
+    """Record the architecture knobs of ``cfg`` (a Config) that a checkpoint
+    was trained with, as ``<dir>/config.json``: they change the parameter
+    tree, and serving reads them (:func:`load_snapshot_config`)."""
+    os.makedirs(snapshot_dir, exist_ok=True)
+    path = os.path.join(snapshot_dir, "config.json")
+    with open(path, "w") as f:
+        json.dump({k: getattr(cfg.patch, k)
+                   for k in ("desc_mode", "desc_pool", "desc_width")}, f)
+    return path
+
+
+def save_snapshot(snapshot_dir: str, state_dicts: dict, cfg) -> str:
+    """Write {"desc": state_dict, "pose": state_dict} as
+    ``<dir>/{Desc,Pose}/best.msgpack`` and ``cfg``'s architecture knobs as
+    ``<dir>/config.json``; returns ``snapshot_dir``."""
     for stage, modules in (("Desc", DESC_MODULES), ("Pose", POSE_MODULES)):
-        with open(os.path.join(snapshot_dir, stage, "best.msgpack"), "rb") as f:
-            tree = msgpack_restore(f.read())
-        out[stage.lower()] = params_from_numpy(tree, modules)
-    return out
+        write_checkpoint(os.path.join(snapshot_dir, stage, "best.msgpack"),
+                         state_dicts[stage.lower()], modules)
+    save_snapshot_config(snapshot_dir, cfg)
+    return snapshot_dir

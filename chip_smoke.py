@@ -77,7 +77,31 @@ Phases (any failure raises and exits non-zero):
 9. the evaluation harness: ``evaluate_pairs`` on 4 hard pairs with per-phase
    timing off and on, ``evaluate_pairs_batched`` on 16 pairs at B = 8, the
    per-sample CSVs written under ``chiprun_out/``; every pose within 1e-5 m
-   of ``register_batch``'s on the same clouds with the same draws.
+   of ``register_batch``'s on the same clouds with the same draws;
+10. training on the card, at the configuration that trained
+   ``hard_moments_r4ft2`` (``tools/train_synthetic.py``'s: 4096-point
+   clouds, 256 correspondences, 256-point patches, moments mode, gated
+   pool, width 1, float32), on 3 ``hard_training_stream`` batches: moment
+   pooling (K3) and the cell query (K4) against their plain versions on a
+   batch's training patches (counts exact and sums within
+   1e-4 + 1e-5 |p|; slots bit-exact), timed; one Desc and one Pose step
+   from ``hard_moments_r4ft2`` on the card and on the CPU with the same
+   batch and draws (loss within 1e-4 relative; global gradient norm within
+   1e-2: the Pose stage's train-mode BatchNorm makes its float32 gradient
+   ill-conditioned, JAX's own is 3.6e-3 from a float64 evaluation in
+   tests/test_torch_train_forward.py; the parameters' step equal within
+   1e-3 learning rates on at least 98% of the elements and never more than
+   two learning rates apart: Adam turns a gradient element at the float32
+   noise level into a full step of either sign; running statistics within
+   1e-3 relative L2); then 20 Desc and 20 Pose steps from ``hard_moments_r4ft2`` and 5
+   sampled-mode Desc steps from ``snapshot/hard``, each after 3 untimed
+   steps (the last under the sync-debug mode: no synchronizing call), timed
+   with CUDA events: ms a step, peak memory (and its excess over what the
+   smoke held before the steps), every loss finite and every
+   step accepted, K3 (K4 in sampled mode) launched 2 times a step and no
+   other kernel; the trained moments nets written as a snapshot
+   (``tools/weights.py``), loaded back with ``load_snapshot`` and its
+   ``config.json``, and phase 4's first pair registered with it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -87,6 +111,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -114,6 +139,13 @@ JAX_SUCCESSES = {"moments": 4, "sampled": 4, "moments_scale0": 4}
 # must reach this count less 6.
 JAX_GATE_SUCCESSES = 95
 GATE_PAIRS = 8            # pairs a cell in phase 8: one batch
+# phase 10: batches in the resident pool, untimed steps before the timed
+# ones (one of them under the sync-debug mode), timed steps of each stage,
+# and timed sampled-mode Desc steps
+TRAIN_POOL = 3
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 20
+TRAIN_SAMPLED_STEPS = 5
 # launches per pair: FPS for both clouds in one launch, the stratified query
 # for both clouds and all scales in one launch, then per scale moment pooling
 # ("moments"), or the cell query and the fused conv stack ("sampled" with
@@ -431,12 +463,29 @@ def run_gate(torch, reg, cuda_build, models, dev):
         filter=check_gate_filter(torch, reg, models, dev, cfg, cells, kw))
 
 
+def sync_calls(torch, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: every
+    call that makes the host wait for the card warns (a host-to-device copy
+    does too). Returns the place (file:line) of each such call."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+            for w in caught if "called a synchronizing" in str(w.message)]
+
+
 def check_gate_filter(torch, reg, models, dev, cfg, cells, kw):
     """The prefilter on the card against the same ops on the CPU, on the 16
     clouds of the 20%-clutter cell's batch, timed; then that batch through
     all scales under the sync-debug mode."""
-    import warnings
-
     from bufferx_tpu_torch.kernels.density import density_inlier_mask
     from bufferx_tpu_torch.tools import exp_hard
     from bufferx_tpu_torch.tools.bench_strat import time_ms
@@ -476,18 +525,8 @@ def check_gate_filter(torch, reg, models, dev, cfg, cells, kw):
                             batch=BATCH)
     scales = tuple(range(statics.num_scales))
     reg._register_batch(models, statics, src8, tgt8, draws8, scales, False)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            reg._register_batch(models, statics, src8, tgt8, draws8, scales,
-                                False)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    syncs = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
-             for w in caught if "called a synchronizing" in str(w.message)]
+    syncs = sync_calls(torch, lambda: reg._register_batch(
+        models, statics, src8, tgt8, draws8, scales, False))
     log(f"gate batch of {BATCH} pairs, all scales, prefilter and IRLS, under "
         f"sync-debug mode: {len(syncs)} synchronizing calls "
         f"{sorted(set(syncs))}")
@@ -569,6 +608,298 @@ def run_harness(torch, reg, models, dev):
     out["evaluate_pairs_batched"] = check("evaluate_pairs_batched, B = 8",
                                           summary, refs)
     return out
+
+
+def _rel_l2(ref: dict, got: dict, keys, base=None) -> float:
+    num = sum(float(((ref[k] - got[k]).double() ** 2).sum()) for k in keys)
+    den = sum(float(((ref[k] - (0 if base is None else base[k])).double()
+                     ** 2).sum()) for k in keys)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def run_training(torch, cuda_build, reg, se3, make_cfg, dev, serve_pair):
+    """Phase 10: training on the card (see the module notes). Returns
+    (launches of the moments run, launches of the sampled run, what it
+    measured, kernel entries at training shapes)."""
+    import tempfile
+
+    from bufferx_tpu_torch.data.hardsynth import hard_training_stream
+    from bufferx_tpu_torch.data.training import (
+        pool_batch,
+        stack_batches,
+        to_device,
+    )
+    from bufferx_tpu_torch.geometry import spt_pallas
+    from bufferx_tpu_torch.geometry.cylindrical import grid_cells_on
+    from bufferx_tpu_torch.models.layers import ConvBNRelu
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+    from bufferx_tpu_torch.tools.train_synthetic import training_config
+    from bufferx_tpu_torch.tools.weights import (
+        load_snapshot,
+        load_snapshot_config,
+        save_snapshot,
+    )
+    from bufferx_tpu_torch.train import forward as tf
+    from bufferx_tpu_torch.train import trainer as tt
+
+    t_phase = time.perf_counter()
+    cfg = training_config("moments")            # hard_moments_r4ft2's
+    cfg_s = training_config("sampled")          # snapshot/hard's
+    st, st_s = tf.TrainStatics.from_config(cfg), tf.TrainStatics.from_config(
+        cfg_s)
+    n_pts = cfg.capacity.max_points
+    host = list(hard_training_stream(cfg, TRAIN_POOL, seed=7, num_points=4000,
+                                     host_arrays=True))
+    pool = stack_batches(host, dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    log(f"training: {TRAIN_POOL} hard_training_stream batches, "
+        f"{[int(b['corr_valid'].sum()) for b in host]} valid "
+        f"correspondences of {cfg.train.pos_num}, "
+        f"{[int(b['src_fds_mask'].sum()) for b in host]} source points of "
+        f"{n_pts}")
+
+    # -- K3 and K4 against their plain versions on the training patches --
+    b0 = pool_batch(pool, 0)
+    dr0 = tf.make_train_draws(st, n_pts, gen, dev)
+    aligned, pmask, _R, _a, _aug = tf.training_patches(
+        st, b0["src_fds"], b0["src_fds_mask"], b0["src_kpt"], b0["des_r"],
+        b0["is_aligned"], dr0.off_src)
+    aligned, pmask = aligned.contiguous(), pmask.contiguous()
+    cells = grid_cells_on(st.rad_n, st.ele_n, st.azi_n, dev)
+    radius = st.delta / st.rad_n
+    r2, azi = radius * radius, st.azi_n
+    got = spt_pallas.spt_moments_cuda(aligned, pmask, cells, r2, ring_len=azi)
+    want = spt_pallas.spt_moments_plain(aligned, pmask, cells, r2)
+    torch.cuda.synchronize()
+    if not torch.equal(got[:, 9], want[:, 9]):
+        raise AssertionError("training: moment counts differ from the plain "
+                             "version")
+    err3 = (got - want).abs()
+    if bool((err3 > 1e-4 + 1e-5 * want.abs()).any()):
+        raise AssertionError(f"training: moment sums off by up to "
+                             f"{float(err3.max())}")
+    kept = int(spt_pallas.ring_candidate_counts_cuda(
+        aligned, pmask, cells, radius, azi).sum()) * azi
+    ns = st_s.voxel_sample
+    got4 = spt_pallas.spt_cell_query_cuda(aligned, pmask, cells, radius, ns,
+                                          ring_len=azi)
+    want4 = spt_pallas.spt_cell_query_plain(aligned, pmask, cells, radius, ns)
+    torch.cuda.synchronize()
+    if not torch.equal(got4, want4):
+        raise AssertionError("training: cell query slots differ from the "
+                             "plain version")
+    kq, p = pmask.shape
+    g = cells.shape[0]
+    cull_ops = 4.0 * float(pmask.sum()) + 6.0 * kq * p * (g // azi) \
+        + 9.0 * kept
+    hits = float(want[:, 9].sum())
+
+    def cdist_bmm():
+        ok = (torch.cdist(cells[None].expand(kq, -1, -1), aligned)
+              <= radius).to(torch.float32)
+        return torch.bmm(ok, spt_pallas.point_moment_features(
+            aligned, pmask)).transpose(1, 2)
+
+    shapes = f"patches {list(aligned.shape)} (training)"
+    entries = [
+        dict(name="moments", case="training", path="training",
+             match="counts exact, sums within 1e-4 + 1e-5|p|",
+             max_abs_err=float(err3.max()),
+             ms=time_ms(lambda: spt_pallas.spt_moments_cuda(
+                 aligned, pmask, cells, r2, ring_len=azi), 20),
+             plain_ms=time_ms(lambda: spt_pallas.spt_moments_plain(
+                 aligned, pmask, cells, r2), 5),
+             library_ms=time_ms(cdist_bmm, 10),
+             bound=bound_ms(kq * p * 13 + g * 12 + kq * 10 * g * 4,
+                            cull_ops + 16.0 * hits),
+             shapes=shapes + f" -> {list(got.shape)}"),
+        dict(name="cell_query", case="training", path="training_sampled",
+             match="bit-exact", max_abs_err=0.0,
+             ms=time_ms(lambda: spt_pallas.spt_cell_query_cuda(
+                 aligned, pmask, cells, radius, ns, ring_len=azi), 20),
+             plain_ms=time_ms(lambda: spt_pallas.spt_cell_query_plain(
+                 aligned, pmask, cells, radius, ns), 5),
+             library_ms=None,
+             bound=bound_ms(kq * p * 13 + g * 12 + got4.numel() * 4,
+                            cull_ops),
+             shapes=shapes + f" -> {list(got4.shape)}"),
+    ]
+    for e in entries:
+        log(f"training {e['name']}: {e['shapes']} matches the plain version; "
+            f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, library "
+            f"{e['library_ms']}, bound {e['bound'][0]:.4f} ms "
+            f"({e['bound'][1]})")
+    del got, want, got4, want4
+
+    # -- one Desc and one Pose step on the card and on the CPU --
+    sd = load_snapshot(SNAPSHOT)
+    host_b = host[0]
+    cpu_draws = tf.make_train_draws(st, n_pts, torch.Generator().manual_seed(3),
+                                    "cpu")
+    steps = {}
+    for label, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        batch = to_device(host_b, d)
+        draws = tf.TrainDraws(*(x.to(d) for x in cpu_draws))
+        desc, pose = tt.train_models(cfg, sd, d)
+        out = {}
+        for stage, model in (("Desc", desc), ("Pose", pose)):
+            if stage == "Desc":
+                loss, _ = tf.desc_stage_loss(desc, st, batch, draws)
+            else:
+                loss, _ = tf.pose_stage_loss(pose, desc, st, batch, draws)
+            params = dict(model.named_parameters())
+            grads = torch.autograd.grad(loss, list(params.values()))
+            gnorm = torch.sqrt(sum(torch.sum(x * x) for x in grads))
+            before = {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}
+            opt = tt.make_optimizer(cfg, stage, 100)
+            step = tt.make_train_step(cfg, stage, opt)
+            state = opt.init(params)
+            if stage == "Desc":
+                _, m = step(model, state, batch, draws)
+            else:
+                _, m = step(model, state, desc, batch, draws)
+            out[stage] = dict(
+                loss=float(loss.detach()), gnorm=float(gnorm),
+                ok=bool(m["grads_finite"]),
+                before=before,
+                after={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                dead={f"{n}.bias" for n, mm in model.named_modules()
+                      if isinstance(mm, ConvBNRelu) and mm.use_bn},
+                lr=opt.lr)
+        steps[label] = out
+    agree = {}
+    for stage in ("Desc", "Pose"):
+        c, k = steps["cpu"][stage], steps["card"][stage]
+        keys = list(c["after"])
+        stats = [x for x in keys if x.endswith(("bn_mean", "bn_var"))]
+        live = [x for x in keys if x not in stats and x not in c["dead"]]
+        diff = torch.cat([(c["after"][x] - k["after"][x]).abs().flatten()
+                          for x in live])
+        a = dict(
+            loss_rel=abs(k["loss"] - c["loss"]) / abs(c["loss"]),
+            grad_norm_rel=abs(k["gnorm"] - c["gnorm"]) / c["gnorm"],
+            step_rel_l2=_rel_l2(c["after"], k["after"], live, c["before"]),
+            step_differs_share=float((diff > 1e-3 * c["lr"]).float().mean()),
+            step_max_over_lr=float(diff.max()) / c["lr"],
+            stats_rel_l2=_rel_l2(c["after"], k["after"], stats),
+        )
+        log(f"training {stage} step, card vs CPU: loss {k['loss']:.6f} / "
+            f"{c['loss']:.6f}, grad norm {k['gnorm']:.6f} / {c['gnorm']:.6f}, "
+            + ", ".join(f"{n} {v:.3e}" for n, v in a.items()))
+        if not (k["ok"] and c["ok"]) or a["loss_rel"] > 1e-4 or \
+                a["grad_norm_rel"] > 1e-2 or \
+                a["step_differs_share"] > 0.02 or \
+                a["step_max_over_lr"] > 2.0 + 1e-3 or a["stats_rel_l2"] > 1e-3:
+            raise AssertionError(f"training {stage}: card and CPU steps "
+                                 f"disagree: {a}")
+        agree[stage] = a
+    del steps
+
+    # -- ~20 Desc then ~20 Pose steps, moments mode, from hard_moments_r4ft2 --
+    desc, pose = tt.train_models(cfg, sd, dev)
+
+    def run_stage(stage, model, frozen, stage_cfg, n_steps, count_kernel):
+        statics = tf.TrainStatics.from_config(stage_cfg)
+        opt = tt.make_optimizer(stage_cfg, stage, 100)
+        step_fn = tt.make_train_step(stage_cfg, stage, opt)
+        state = [opt.init(dict(model.named_parameters()))]
+        metrics = []
+
+        def one(i):
+            batch = pool_batch(pool, i % TRAIN_POOL)
+            draws = tf.make_train_draws(statics, n_pts, gen, dev)
+            args = (batch, draws) if frozen is None else (frozen, batch, draws)
+            state[0], m = step_fn(model, state[0], *args)
+            metrics.append(m)
+
+        for i in range(TRAIN_WARMUP):
+            one(i)
+        syncs = sync_calls(torch, lambda: one(TRAIN_WARMUP))
+        if syncs:
+            raise AssertionError(f"training {stage}: a step waits for the "
+                                 f"card at {sorted(set(syncs))}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cuda_build.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n_steps):
+            one(TRAIN_WARMUP + 1 + i)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / n_steps
+        launches = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        above = peak - held / 1e9
+        read = {k: torch.stack([m[k].float() for m in metrics]).cpu()
+                for k in metrics[0]}
+        if not bool(torch.isfinite(read["loss"]).all()) or \
+                not bool((read["grads_finite"] == 1).all()):
+            raise AssertionError(f"training {stage}: non-finite loss or a "
+                                 f"rejected step: {read}")
+        per_step = launches[count_kernel] / n_steps
+        if per_step != 2:
+            raise AssertionError(f"training {stage}: {count_kernel} launched "
+                                 f"{per_step} times a step, expected 2")
+        others = {n: c for n, c in launches.items()
+                  if c and n != count_kernel}
+        if others:
+            raise AssertionError(f"training {stage}: other kernels launched: "
+                                 f"{others}")
+        losses = read["loss"].tolist()
+        log(f"training {stage} ({statics.desc_mode}): {n_steps} steps, "
+            f"{ms:.3f} ms a step, peak memory {peak:.3f} GB ({above:.3f} "
+            "above what the smoke held before the steps), "
+            f"{count_kernel} {per_step:g} launches a step, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        return launches, dict(steps=n_steps, ms_per_step=ms,
+                              peak_memory_gb=peak,
+                              peak_above_held_gb=above,
+                              launches_per_step=per_step,
+                              loss_first=losses[0], loss_last=losses[-1],
+                              sync_calls=len(syncs))
+
+    launches_d, desc_m = run_stage("Desc", desc, None, cfg, TRAIN_STEPS,
+                                   "moments")
+    launches_p, pose_m = run_stage("Pose", pose, desc, cfg, TRAIN_STEPS,
+                                   "moments")
+
+    # -- a few sampled-mode Desc steps from snapshot/hard: K4 on the path --
+    desc_s, _ = tt.train_models(cfg_s, load_snapshot(SNAPSHOT_SAMPLED), dev)
+    launches_s, sampled_m = run_stage("Desc", desc_s, None, cfg_s,
+                                      TRAIN_SAMPLED_STEPS, "cell_query")
+
+    # -- train -> save -> serve --
+    tmp = tempfile.mkdtemp(prefix="bx_train_")
+    try:
+        save_snapshot(tmp, {"desc": desc.state_dict(),
+                            "pose": pose.state_dict()}, cfg)
+        knobs = load_snapshot_config(tmp)
+        serve_cfg = make_cfg("ModelNet40").override(patch=knobs)
+        statics = reg.PipelineStatics.from_config(serve_cfg)
+        models = reg.build_models(statics, load_snapshot(tmp), dev)
+        src, tgt, T = serve_pair
+        res = reg.register_pair(serve_cfg, src, tgt, models,
+                                generator=torch.Generator().manual_seed(0),
+                                device=dev)
+        rte, rre, ok = pose_errors(se3, serve_cfg, res.pose, T)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"training: snapshot written and served: config {knobs}, RTE "
+        f"{rte:.4f} m, RRE {rre:.3f} deg, success {ok}, valid "
+        f"{bool(res.valid)}")
+    if not (bool(torch.isfinite(res.pose).all()) and bool(res.valid)):
+        raise AssertionError("training: the port-written snapshot did not "
+                             "serve the pair")
+    seconds = time.perf_counter() - t_phase
+    log(f"training phase: {seconds:.1f} s")
+    launches = {n: launches_d[n] + launches_p[n] for n in launches_d}
+    return launches, launches_s, dict(
+        card_vs_cpu=agree, desc=desc_m, pose=pose_m, sampled_desc=sampled_m,
+        served=dict(rte=rte, rre=rre, success=ok), seconds=seconds), entries
 
 
 def main() -> int:
@@ -1029,24 +1360,11 @@ def main() -> int:
     def with_threshold(base, threshold):
         return base.override(match=dict(early_exit_min_inliers=threshold))
 
-    # one scale-0 batch under the sync-debug mode: every call that makes the
-    # host wait for the card warns (a host-to-device copy does too)
-    import warnings
+    # one scale-0 batch under the sync-debug mode
     stat_b = reg.PipelineStatics.from_config(cfg)
     reg._register_batch(models, stat_b, src8, tgt8, draws8, (0,), False)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            reg._register_batch(models, stat_b, src8, tgt8, draws8, (0,),
-                                False)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    syncs = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
-             for w in caught
-             if "called a synchronizing" in str(w.message)]
+    syncs = sync_calls(torch, lambda: reg._register_batch(
+        models, stat_b, src8, tgt8, draws8, (0,), False))
     log(f"batched scale-0 run of {BATCH} pairs under sync-debug mode: "
         f"{len(syncs)} synchronizing calls {sorted(set(syncs))}")
     if syncs:
@@ -1220,6 +1538,12 @@ def main() -> int:
     # ---- 9. the evaluation harness ----------------------------------------
     harness = run_harness(torch, reg, models, dev)
 
+    # ---- 10. training on the card ------------------------------------------
+    launches["training"], launches["training_sampled"], training, \
+        train_kernels = run_training(torch, cuda_build, reg, se3, make_cfg,
+                                     dev, pairs[0])
+    kernels.extend(train_kernels)
+
     # ---- result lines -----------------------------------------------------
     out = []
     for kr in kernels:
@@ -1230,7 +1554,8 @@ def main() -> int:
                                     else {}),
             source=os.path.relpath(kk.source_path, HERE),
             replaces=kk.replaces,
-            launches=launches[PATH_OF[kr["name"]]][kr["name"]],
+            launches=launches[kr.get("path", PATH_OF[kr["name"]])][
+                kr["name"]],
             launches_by_path={n: c[kr["name"]] for n, c in launches.items()},
             max_abs_err=kr["max_abs_err"], ms=kr["ms"],
             plain_ms=kr["plain_ms"], bound_ms=kr["bound"][0],
@@ -1239,6 +1564,7 @@ def main() -> int:
         ))
     print(json.dumps({"batched": list(batched.values())}), flush=True)
     print(json.dumps({"gate": gate, "harness": harness}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

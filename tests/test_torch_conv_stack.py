@@ -149,6 +149,7 @@ def test_fused_module_loads_and_folds(folds):
     assert torch.equal(fused.folded_w, tw) and torch.equal(fused.folded_b, tb)
     ref = CylindricalConvNet(32, 1.0, torch.bfloat16)
     ref.load_state_dict(backbone, strict=True)
+    ref.eval()                # running statistics, as the fused stack folds
     x = torch.from_numpy(_inputs(2)).permute(0, 4, 1, 2, 3)   # [K, 16, 3, 7, 20]
     with torch.no_grad():
         want = ref(x)

@@ -122,10 +122,11 @@ def test_pairwise_recall_equal():
 # ---- presets ---------------------------------------------------------------
 @pytest.mark.parametrize("name", sorted(jconfig.DATASETS))
 def test_presets_equal_jax(name):
-    """All 14 presets, every field of the sections the port carries."""
+    """All 14 presets, every field of every section."""
     assert sorted(tconfig.DATASETS) == sorted(jconfig.DATASETS)
     t, j = tconfig.make_cfg(name, "/data"), jconfig.make_cfg(name, "/data")
-    for sec in ("data", "test", "patch", "match", "capacity"):
+    for sec in ("data", "train", "test", "optim", "patch", "match",
+                "capacity"):
         for f in dataclasses.fields(getattr(t, sec)):
             assert getattr(getattr(t, sec), f.name) == \
                 getattr(getattr(j, sec), f.name), (sec, f.name)

@@ -41,8 +41,11 @@ def test_scene_samples_bit_equal(scene):
 
 
 def test_training_stream_is_left_out():
-    """The training stream belongs to the training slice (it builds jax
-    batches); the port's copy has the four evaluation functions only."""
-    assert sorted(ths.__all__) == ["eval_scene", "hard_pair", "sample_scene",
+    """The training stream, once left out with training, came with it: the
+    port's copy has the four evaluation functions and
+    ``hard_training_stream`` (bit-equal batches:
+    tests/test_torch_training_data.py)."""
+    assert sorted(ths.__all__) == ["eval_scene", "hard_pair",
+                                   "hard_training_stream", "sample_scene",
                                    "train_scene"]
-    assert not hasattr(ths, "hard_training_stream")
+    assert callable(ths.hard_training_stream)

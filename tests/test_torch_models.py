@@ -1,5 +1,7 @@
 """Port parity: MiniSpinNet (moments, gated) and CostVolume, layer by layer,
-with the shipped ``hard_moments_r4ft2`` checkpoint, in float32 and bf16; and
+with the shipped ``hard_moments_r4ft2`` checkpoint, in float32 and bf16; the
+softmax pool (``hard_moments_r4``) and width 2.0 (``r5_w2_scratch``) the
+same way; and
 the sampled MiniSpinNet with ``snapshot/hard`` in bf16, with the cuDNN
 backbone and with the fused conv stack (kernel K5's plain version on the
 JAX side's ``cyl_conv_stack_reference``).
@@ -29,7 +31,7 @@ from bufferx_tpu.models.heads import CostVolume as JaxCostVolume
 from bufferx_tpu.models.spinnet import MiniSpinNet as JaxMiniSpinNet
 from bufferx_tpu_torch.models.heads import CostVolume
 from bufferx_tpu_torch.models.spinnet import MiniSpinNet
-from bufferx_tpu_torch.tools.weights import load_snapshot
+from bufferx_tpu_torch.tools.weights import load_snapshot, load_snapshot_config
 
 SNAP = os.path.join(os.path.dirname(__file__), "..", "snapshot",
                     "hard_moments_r4ft2")
@@ -81,6 +83,7 @@ def test_minispinnet_layerwise(weights, dt):
     inter = inter["intermediates"]
     tm = MiniSpinNet(compute_dtype=tdt)
     tm.load_state_dict(weights["torch"]["desc"], strict=True)
+    tm.eval()                 # serving: BatchNorm from running statistics
     hooked = {"stem": tm.stem, "att_hidden": tm.att_hidden,
               "att_gate": tm.att_gate}
     hooked.update({f"backbone.{i}": layer
@@ -120,6 +123,7 @@ def test_cost_volume_layerwise(weights, dt):
     inter = inter["intermediates"]
     tc = CostVolume(compute_dtype=tdt)
     tc.load_state_dict(weights["torch"]["pose"], strict=True)
+    tc.eval()
     hooked = {"stem": tc.stem}
     hooked.update({f"layer.{i}": layer for i, layer in enumerate(tc.layers)})
     got = _hook_outputs(hooked)
@@ -169,11 +173,57 @@ def test_minispinnet_sampled_layerwise(fused):
     _close(out["equi"], o["equi"], 2e-2, "equi")
 
 
+@pytest.mark.parametrize("snap,dt", [("hard_moments_r4", "f32"),
+                                     ("hard_moments_r4", "bf16"),
+                                     ("r5_w2_scratch", "f32"),
+                                     ("r5_w2_scratch", "bf16")])
+def test_minispinnet_softmax_and_width_layerwise(snap, dt):
+    """The other two architectures shipped with the repo, read from their
+    config.json: the softmax pool (``hard_moments_r4``) and the backbone at
+    width 2.0 (``r5_w2_scratch``), every layer and both outputs against the
+    JAX net, with the tolerances above."""
+    jdt, tdt = DTYPES[dt]
+    root = os.path.join(os.path.dirname(__file__), "..", "snapshot", snap)
+    knobs = load_snapshot_config(root)
+    pool, width = knobs["desc_pool"], knobs.get("desc_width", 1.0)
+    assert (pool, width) == {"hard_moments_r4": ("softmax", 1.0),
+                             "r5_w2_scratch": ("gated", 2.0)}[snap]
+    rs = np.random.RandomState(3)
+    x = (rs.randn(6, 10, 420) * 0.5).astype(np.float32)
+    jm = JaxMiniSpinNet(mode="moments", pool=pool, width=width,
+                        compute_dtype=jdt)
+    out, inter = jm.apply(_restore(root, "Desc"), jnp.asarray(x),
+                          train=False, capture_intermediates=True)
+    inter = inter["intermediates"]
+    tm = MiniSpinNet(pool=pool, width=width, compute_dtype=tdt)
+    tm.load_state_dict(load_snapshot(root)["desc"], strict=True)
+    tm.eval()
+    hooked = {"stem": tm.stem, "att_hidden": tm.att_hidden,
+              "att_gate": tm.att_gate}
+    hooked.update({f"backbone.{i}": layer
+                   for i, layer in enumerate(tm.backbone.layers)})
+    got = _hook_outputs(hooked)
+    with torch.no_grad():
+        o = tm(torch.from_numpy(x))
+    tol = LAYER_TOL[dt]
+    _close(inter["ConvBNRelu_0"]["__call__"][0], got["stem"], tol, "stem")
+    for i in range(8):
+        ref = inter["CylindricalConvNet_0"][f"ConvBNRelu_{i}"]["__call__"][0]
+        _close(ref, torch.movedim(got[f"backbone.{i}"], 1, -1), tol,
+               f"backbone layer {i}")
+    for jname, tname in (("ConvBNRelu_1", "att_hidden"),
+                         ("ConvBNRelu_2", "att_gate")):
+        _close(inter[jname]["__call__"][0], torch.movedim(got[tname], 1, -1),
+               tol, tname)
+    desc_tol, equi_tol = (1e-5, 1e-5) if dt == "f32" else (5e-3, 2e-2)
+    _close(out["desc"], o["desc"], desc_tol, "desc")
+    _close(out["equi"], o["equi"], equi_tol, "equi")
+
+
 def test_minispinnet_rejects_unported_modes():
-    with pytest.raises(NotImplementedError):
-        MiniSpinNet(pool="softmax")
-    with pytest.raises(NotImplementedError):
-        MiniSpinNet(mode="sampled", pool="softmax")
+    assert MiniSpinNet(pool="softmax").att_gate.use_bn is False
+    with pytest.raises(ValueError):
+        MiniSpinNet(pool="max")
     with pytest.raises(ValueError):
         MiniSpinNet(mode="voxel")
     sampled = MiniSpinNet(mode="sampled")

@@ -31,7 +31,7 @@ from bufferx_tpu_torch.config import make_cfg
 from bufferx_tpu_torch.core import se3
 from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
 from bufferx_tpu_torch.pipeline import registration as treg
-from bufferx_tpu_torch.tools.weights import load_snapshot
+from bufferx_tpu_torch.tools.weights import load_snapshot, load_snapshot_config
 
 SNAP = os.path.join(os.path.dirname(__file__), "..", "snapshot",
                     "hard_moments_r4ft2")
@@ -195,6 +195,26 @@ def test_register_pair_sampled_fused_matches(sampled_setup, i):
     _check_register_pair(sampled_setup, i)
 
 
+@pytest.mark.parametrize("snap", ["hard_moments_r4", "r5_w2_scratch"])
+def test_register_pair_other_snapshots_match(snap):
+    """Serving with the softmax-pool and the width-2.0 checkpoints, each
+    configured from its config.json, against ``register_pair_jit``."""
+    root = os.path.join(os.path.dirname(SNAP), snap)
+    jcfg = jax_make_cfg("ModelNet40").override(**SMALL)
+    tcfg = make_cfg("ModelNet40").override(**SMALL)
+    knobs = load_snapshot_config(root)
+    jcfg = jcfg.override(patch=knobs)
+    tcfg = tcfg.override(patch=knobs)
+    params = {}
+    for stage in ("Desc", "Pose"):
+        with open(os.path.join(root, stage, "best.msgpack"), "rb") as f:
+            params[stage.lower()] = jax.tree.map(
+                jnp.asarray, flax.serialization.msgpack_restore(f.read()))
+    models = treg.build_models(treg.PipelineStatics.from_config(tcfg),
+                               load_snapshot(root), "cpu")
+    _check_register_pair((jcfg, tcfg, params, models), 0)
+
+
 def test_sampled_descriptor_sub_batches(sampled_setup, monkeypatch):
     """A batch with more patches than ``SAMPLED_DESC_CHUNK`` goes through
     the descriptor net in sub-batches (here 100, 100 and 56 of 256 patches a
@@ -280,17 +300,20 @@ def test_empty_cloud_gives_identity(setup, which):
 
 
 def test_check_ported_options(setup):
-    """GNC, IRLS refinement, early exit and the clutter prefilter are
-    ported; what is not still raises, and says what."""
+    """GNC, IRLS refinement, early exit, the clutter prefilter, the softmax
+    pool and a widened backbone are ported; what is not still raises, and
+    says what."""
     _j, tcfg, _p, _m = setup
     for kw in (dict(match=dict(pose_estimator="gnc")),
                dict(test=dict(pose_refine=True)),
                dict(match=dict(enable_early_exit=True)),
-               dict(data=dict(clutter_filter=True))):
+               dict(data=dict(clutter_filter=True)),
+               dict(patch=dict(desc_pool="softmax")),
+               dict(patch=dict(desc_width=2.0))):
         treg._check_ported(treg.PipelineStatics.from_config(
             tcfg.override(**kw)))
     for kw, word in ((dict(patch=dict(exact_topk=True)), "exact_topk"),
-                     (dict(patch=dict(desc_pool="softmax")), "desc_pool"),
+                     (dict(patch=dict(desc_pool="max")), "desc_pool"),
                      (dict(patch=dict(vmap_scales=True)), "vmap_scales"),
                      (dict(patch=dict(strat_ball_query=False)), "patch query"),
                      (dict(match=dict(pose_estimator="teaser")),
