@@ -132,11 +132,17 @@ def prefetch_samples(
 
     Indexable datasets (``__len__`` + ``__getitem__`` — e.g.
     a list of sample dicts) fan out across worker
-    threads; other iterables get a single filler thread. ``num_workers <=
-    0`` disables prefetching (returns the source unchanged).
+    threads; other iterables get a single filler thread, and so does a
+    dataset whose samples draw from one shared ``rng`` (the loaders'
+    ``PairDataset``): what a sample draws depends on the order of the
+    draws, so its samples are made one after another, in order, and equal
+    sequential ``ds[i]``. ``num_workers <= 0`` disables prefetching (returns
+    the source unchanged).
     """
     if num_workers <= 0:
         return iter(pairs)
+    if hasattr(pairs, "rng"):
+        return prefetch_iter(iter(pairs), depth=depth)
     if isinstance(pairs, Sequence) or (
         hasattr(pairs, "__getitem__") and hasattr(pairs, "__len__")
     ):

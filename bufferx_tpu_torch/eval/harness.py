@@ -12,6 +12,8 @@ Random draws come from a ``torch.Generator`` seeded with
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import Any, Iterable, Sequence
 
 import numpy as np
@@ -34,6 +36,7 @@ from bufferx_tpu_torch.pipeline.registration import (
     register_pair,
     register_pair_timed,
 )
+from bufferx_tpu_torch.utils.progress import ProgressLine
 from bufferx_tpu_torch.utils.result_io import (
     write_per_sample_csv,
     write_summary_csv,
@@ -104,12 +107,35 @@ _NO_PHASES = {"desc_time": 0.0, "pose_time": 0.0, "pose_optim_time": 0.0}
 _STATS = ("num_inliers", "num_mutual", "num_consensus", "scales_used")
 
 
+def _start_profile(dev: torch.device):
+    """A started ``torch.profiler`` profile of the CPU and, on the card,
+    CUDA activity."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, i: int) -> str:
+    """Stops the profile and writes its Chrome trace into ``profile_dir``."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"pair{i}.trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def evaluate_pairs(
     cfg: Config,
     pairs: Iterable[dict],
     params: Any,
     csv_path: str | None = None,
     summary_csv_path: str | None = None,
+    log=None,
+    profile_dir: str | None = None,
+    progress: bool = False,
     enable_timing: bool = False,
     prefetch_workers: int = 2,
     *,
@@ -133,6 +159,12 @@ def evaluate_pairs(
     ``data_time`` is the host stall, not the preparation cost. ``draws``:
     one :class:`Draws` a pair; otherwise they come from ``generator``
     (default: a CPU generator seeded ``cfg.data.manual_seed``).
+
+    ``log`` (e.g. ``print``) is called every 10 pairs with the running
+    recall, errors and model time. ``profile_dir`` traces exactly the pair
+    at index ``WARMUP`` with ``torch.profiler`` (CPU and, on the card, CUDA
+    activity) and writes its Chrome trace there. ``progress`` draws a
+    one-line progress display with failure call-outs.
     """
     dev = resolve_device(device)
     models = _models(cfg, params, dev)
@@ -147,6 +179,8 @@ def evaluate_pairs(
     rows = []
     rte_succ, rre_succ = AverageMeter(), AverageMeter()
     data_timer = Timer()
+    line = (ProgressLine(cfg.data.dataset, stream=sys.stderr) if progress
+            else None)
 
     def prepared_stream():
         src_iter = prefetch_samples(pairs, num_workers=prefetch_workers)
@@ -167,11 +201,15 @@ def evaluate_pairs(
         kw = dict(draws=pair_draws, is_aligned=_aligned(cfg, sample),
                   device=dev)
         phases = _NO_PHASES
+        prof = (_start_profile(dev) if profile_dir is not None
+                and i == WARMUP else None)
         with DeviceTimer(dev) as t:
             if enable_timing:
                 res, phases = register_pair_timed(cfg, src, tgt, models, **kw)
             else:
                 res = register_pair(cfg, src, tgt, models, **kw)
+        if prof is not None:
+            _stop_profile(prof, profile_dir, i)
 
         T_gt = torch.as_tensor(np.asarray(sample["relt_pose"], np.float32),
                                device=dev)
@@ -197,7 +235,16 @@ def evaluate_pairs(
         rows.append(_row(sample, i, cfg, success, rte, rre, stats,
                          data_timer.diff, t.diff, phases,
                          res.pose.cpu().numpy()))
+        if line is not None:
+            line.update(i, meters["success"].avg, rte, rre, success,
+                        pair_id=f"{sample.get('src_id', i)}")
+        if log and (i + 1) % 10 == 0:
+            log(f"[{i + 1}] recall {meters['success'].avg * 100:.1f}% "
+                f"rte {meters['rte'].avg:.3f} rre {meters['rre'].avg:.2f} "
+                f"model {meters['model_time'].avg * 1000:.0f}ms")
 
+    if line is not None:
+        line.finish()
     summary = dict(
         dataset=cfg.data.dataset,
         num_pairs=meters["success"].count,

@@ -8,11 +8,17 @@ of one:
 
 1. :func:`_precompute`: with ``clutter_filter``, the density prefilter
    (:mod:`bufferx_tpu_torch.kernels.density`) refines the 2B clouds' masks,
-   and everything in this step reads the refined ones; one FPS launch for
+   and everything after it reads the refined ones; one FPS launch for
    all 2B clouds (kernel K1) gives the radius probes and, as their prefix,
    the keypoints; the centroid-centred f32 distance matrices; density-aware
-   radii per pair; and the stratified patch selection of every scale asked
-   for, for all clouds, in one launch over the matrices (kernel K2).
+   radii per pair; and, where the fused query can run
+   (:func:`fused_query`), the stratified patch selection of every scale
+   asked for, for all clouds, in one launch over the matrices (kernel K2).
+   Elsewhere the matrices are kept, and each scale selects its patches with
+   the query :func:`~bufferx_tpu_torch.geometry.patches.select_patches`
+   picks, as the JAX package does: the single-radius stratified query when
+   the strips are too long to pack (``max_points / patch_sample >= 128``),
+   the block query, or the flat one (torch ops, no kernel of their own).
 2. :func:`_scale_candidates`, once per scale: LRF alignment, the SPT
    features (moment pooling, kernel K3, and derotation in "moments" mode;
    the cell query, kernel K4, and derotation in "sampled" mode) over all
@@ -35,13 +41,15 @@ package's ``vmap`` of ``register_pair_jit``), and
 for every batch, then all scales for the pairs whose scale-0 solve was not
 confident; its only host read is one transfer of the inlier counts per batch.
 
-Random draws are explicit (:class:`Draws`): the strip offsets of the
-stratified query and the RANSAC rank draws. By default they come from a
-``torch.Generator``; a test can pass the JAX package's draws instead.
-Options that the JAX package has but the port does not yet (other patch
-queries, exact top-k sampling, scale-vmapped or scale-batched convs) raise
-``NotImplementedError``. :func:`init_params` gives fresh weights with flax's
-initializers, for training.
+Random draws are explicit (:class:`Draws`): the strip offsets of the fused
+stratified query or the per-scale offsets of the other queries, and the
+RANSAC rank draws. By default they come from a ``torch.Generator``; a test
+can pass the JAX package's draws instead. ``exact_topk`` changes nothing
+here (every query of the port is exact, as the JAX package's are on the
+CPU); ``vmap_scales`` and ``scale_batch_conv``, the JAX package's
+schedulings of the same per-scale chain, run the unrolled chain. Pose
+estimators other than RANSAC and GNC raise ``NotImplementedError``. :func:`init_params` gives fresh weights with
+flax's initializers, for training.
 """
 
 from __future__ import annotations
@@ -59,6 +67,11 @@ from bufferx_tpu_torch.core.linalg import take_rows
 from bufferx_tpu_torch.device import resolve_device
 from bufferx_tpu_torch.geometry.cylindrical import spatial_point_transformer
 from bufferx_tpu_torch.geometry.lrf import align_patches
+from bufferx_tpu_torch.geometry.patches import (
+    offset_bounds,
+    patch_query,
+    select_patches,
+)
 from bufferx_tpu_torch.geometry.moments import (
     moments_to_features_mm,
     pool_cell_moments,
@@ -82,10 +95,12 @@ from bufferx_tpu_torch.solver.so2 import so2_pose_candidates
 __all__ = [
     "Cloud",
     "Draws",
+    "ScaleDraws",
     "Models",
     "RegistrationResult",
     "PipelineStatics",
     "build_models",
+    "fused_query",
     "init_params",
     "make_draws",
     "prepare_cloud",
@@ -121,9 +136,24 @@ class RegistrationResult(NamedTuple):
 
 
 class Draws(NamedTuple):
-    """One pair's random draws, or with a leading B a batch's."""
+    """One pair's random draws where the fused query runs
+    (:func:`fused_query`), or with a leading B a batch's."""
     strat_src: torch.Tensor   # [num_fps, patch_sample] int in [0, N/S)
     strat_tgt: torch.Tensor   # [num_fps, patch_sample]
+    ransac: torch.Tensor      # [num_hypotheses, 3] int in [0, 2^30)
+
+
+class ScaleDraws(NamedTuple):
+    """One pair's random draws where each scale runs its own patch query,
+    or with a leading B a batch's. ``patch`` holds each scale's query
+    offsets, indexed by the scale's position in the run's scale subset (the
+    JAX package's ``keys[4 + 2 j]``), the cloud (source, target) and then
+    the query's own shape
+    (:func:`~bufferx_tpu_torch.geometry.patches.offset_bounds`):
+    [num_scales, 2, num_fps] for the flat query, [num_scales, 2, 2,
+    num_fps] for the block query's two levels, [num_scales, 2, num_fps,
+    patch_sample] for the single-radius stratified query."""
+    patch: torch.Tensor       # [num_scales, 2, ...]
     ransac: torch.Tensor      # [num_hypotheses, 3] int in [0, 2^30)
 
 
@@ -176,6 +206,9 @@ class PipelineStatics:
     fused_conv: bool
     scale_batch_conv: bool
     mxu_gather: bool
+    block_ball_query: bool
+    bq_block: int
+    bq_cand_blocks: int
     use_bf16: bool = True   # conv stacks in bf16, as the JAX serving path
 
     @classmethod
@@ -218,32 +251,40 @@ class PipelineStatics:
             fused_conv=p.fused_conv,
             scale_batch_conv=p.scale_batch_conv,
             mxu_gather=p.mxu_gather,
+            block_ball_query=p.block_ball_query,
+            bq_block=p.bq_block,
+            bq_cand_blocks=p.bq_cand_blocks,
         )
 
 
 def _check_ported(s: PipelineStatics) -> None:
-    """Raise on options the port does not implement yet."""
+    """Raise on options the port does not implement."""
     missing = []
     if s.pose_estimator not in ("ransac", "gnc"):
         missing.append(f"pose_estimator={s.pose_estimator!r}")
-    if s.exact_topk:
-        missing.append("exact_topk=True (exact top-k patch and cell "
-                       "sampling)")
     if s.desc_mode not in ("moments", "sampled") or \
             s.desc_pool not in ("gated", "softmax"):
         missing.append(f"desc_mode={s.desc_mode!r}/desc_pool={s.desc_pool!r}")
-    if s.vmap_scales or s.scale_batch_conv:
-        missing.append("vmap_scales/scale_batch_conv")
-    l = s.max_points // s.patch_sample
-    if (not s.strat_ball_query or s.max_points % s.patch_sample
-            or l >= 1 << (31 - QBITS)):
-        missing.append("a patch query other than the fused stratified one "
-                       "(needs max_points % patch_sample == 0 and "
-                       "max_points / patch_sample < 128)")
     if missing:
         raise NotImplementedError(
             "not ported to bufferx_tpu_torch yet: " + "; ".join(missing)
         )
+
+
+def fused_query(s: PipelineStatics) -> bool:
+    """Whether the fused multi-radius stratified query (kernel K2) selects
+    the patches: ``strat_ball_query``, ``max_points % patch_sample == 0``,
+    and strips short enough for its packed ``rank << 24 | coord`` words
+    (``max_points / patch_sample < 128``), the JAX package's conditions."""
+    return (s.strat_ball_query and s.max_points % s.patch_sample == 0
+            and s.max_points // s.patch_sample < 1 << (31 - QBITS))
+
+
+def _scale_query(s: PipelineStatics) -> str:
+    """The per-scale query where the fused one does not run ("strat",
+    "blocks" or "flat"; the pipeline always has the distance matrices)."""
+    return patch_query(s.max_points, s.patch_sample, True, s.block_ball_query,
+                       s.bq_block, s.bq_cand_blocks, s.strat_ball_query)
 
 
 def build_models(statics: PipelineStatics, state_dicts: dict,
@@ -321,21 +362,38 @@ def prepare_cloud(xyz: np.ndarray, cfg: Config, seed: int = 0,
 
 
 def make_draws(statics: PipelineStatics, generator: torch.Generator,
-               device, batch: int | None = None) -> Draws:
-    """Strip offsets for both clouds and RANSAC rank draws: one pair's, or
-    with ``batch`` those of a batch (a leading ``batch`` on each)."""
-    l = statics.max_points // statics.patch_sample
+               device, batch: int | None = None) -> Draws | ScaleDraws:
+    """The patch query's offsets for both clouds and RANSAC rank draws: one
+    pair's, or with ``batch`` those of a batch (a leading ``batch`` on
+    each). The ranks are drawn first; then, where the fused query runs, the
+    strip offsets, source then target (a :class:`Draws`), elsewhere every
+    scale's query offsets (a :class:`ScaleDraws`)."""
     lead = () if batch is None else (batch,)
-    shape = lead + (statics.num_fps, statics.patch_sample)
+    ranks = draw_ranks(statics.num_hypotheses, generator, device,
+                       batch=1 if batch is None else batch)
+    ranks = ranks[0] if batch is None else ranks
 
-    def offsets():
-        return torch.randint(0, l, shape, generator=generator,
+    def randint(high, shape):
+        return torch.randint(0, high, lead + shape, generator=generator,
                              device=generator.device,
                              dtype=torch.int32).to(device)
 
-    ranks = draw_ranks(statics.num_hypotheses, generator, device,
-                       batch=1 if batch is None else batch)
-    return Draws(offsets(), offsets(), ranks[0] if batch is None else ranks)
+    if fused_query(statics):
+        l = statics.max_points // statics.patch_sample
+        shape = (statics.num_fps, statics.patch_sample)
+        return Draws(randint(l, shape), randint(l, shape), ranks)
+    kind = _scale_query(statics)
+    bounds = offset_bounds(kind, statics.max_points, statics.patch_sample,
+                           statics.bq_block, statics.bq_cand_blocks)
+    per = (statics.num_scales, 2, statics.num_fps)
+    if kind == "flat":
+        patch = randint(bounds[0], per)
+    elif kind == "blocks":
+        patch = torch.stack([randint(hi, per) for hi in bounds],
+                            dim=len(lead) + 2)
+    else:
+        patch = randint(bounds[0], per + (statics.patch_sample,))
+    return ScaleDraws(patch, ranks)
 
 
 def stack_clouds(clouds: Sequence[Cloud]) -> Cloud:
@@ -344,21 +402,26 @@ def stack_clouds(clouds: Sequence[Cloud]) -> Cloud:
                  torch.stack([c.mask for c in clouds]))
 
 
-def stack_draws(draws: Sequence[Draws]) -> Draws:
-    """[Draws, ...] of single pairs -> Draws with a leading batch dimension."""
-    return Draws(*(torch.stack(xs) for xs in zip(*draws)))
+def stack_draws(draws: Sequence[Draws | ScaleDraws]) -> Draws | ScaleDraws:
+    """[Draws, ...] (or [ScaleDraws, ...]) of single pairs -> the same type
+    with a leading batch dimension."""
+    return type(draws[0])(*(torch.stack(xs) for xs in zip(*draws)))
 
 
 class _Shared(NamedTuple):
     """Scale-independent precomputation of a batch of B pairs. The 2B clouds
     are stacked sources first: cloud b is pair b's source, cloud B + b its
-    target."""
+    target. ``patches``/``pvalid`` are every scale's patches where the
+    fused query ran (else None); ``d2`` is kept where it did not (the
+    scales' queries read it), or when asked for."""
     kpts: torch.Tensor      # [2B, nf, 3]
     kpts_v: torch.Tensor    # [2B, nf]
-    d2: torch.Tensor        # [2B, num_probe, N]
+    d2: torch.Tensor | None         # [2B, num_probe, N]
     radii: torch.Tensor     # [B, num_scales]
-    patches: torch.Tensor   # [2B, R, nf, S, 3], R = the scales asked for
-    pvalid: torch.Tensor    # [2B, R, nf, S]
+    patches: torch.Tensor | None    # [2B, R, nf, S, 3], R = scales asked for
+    pvalid: torch.Tensor | None     # [2B, R, nf, S]
+    xyz: torch.Tensor       # [2B, N, 3] the clouds
+    mask: torch.Tensor      # [2B, N] their masks (refined by the prefilter)
 
 
 class _Candidates(NamedTuple):
@@ -381,9 +444,10 @@ def _centroid(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _precompute(statics: PipelineStatics, src: Cloud, tgt: Cloud,
-                draws: Draws, scales: tuple) -> _Shared:
+                draws: Draws | ScaleDraws, scales: tuple,
+                keep_d2: bool = False) -> _Shared:
     """src/tgt: stacked clouds [B, N, 3]; draws with a leading B; ``scales``:
-    the radius indices whose patches are selected."""
+    the radius indices whose patches the fused query selects."""
     b = src.xyz.shape[0]
     xyz = torch.cat([src.xyz, tgt.xyz])                          # [2B, N, 3]
     mask = torch.cat([src.mask, tgt.mask])
@@ -414,6 +478,9 @@ def _precompute(statics: PipelineStatics, src: Cloud, tgt: Cloud,
         thresholds=statics.thresholds, max_r=statics.radius_max, subsample=1,
     )                                                            # [B, T]
     nf = statics.num_fps
+    if not fused_query(statics):
+        return _Shared(probe[:, :nf], v[:, :nf], d2, radii, None, None, xyz,
+                       mask)
     radii_used = torch.clamp_min(
         torch.stack([radii[:, s] for s in scales], dim=1), 1e-3)  # [B, R]
     patches, pvalid = ball_query_stratified_multi(
@@ -421,7 +488,8 @@ def _precompute(statics: PipelineStatics, src: Cloud, tgt: Cloud,
         torch.cat([draws.strat_src, draws.strat_tgt]), statics.patch_sample,
         d2[:, :nf],
     )
-    return _Shared(probe[:, :nf], v[:, :nf], d2, radii, patches, pvalid)
+    return _Shared(probe[:, :nf], v[:, :nf], d2 if keep_d2 else None, radii,
+                   patches, pvalid, xyz, mask)
 
 
 def _spt_features(normed, pmask, statics: PipelineStatics) -> torch.Tensor:
@@ -457,18 +525,37 @@ def _describe(models: Models, statics: PipelineStatics,
     return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
 
 
+def _scale_patches(statics: PipelineStatics, pre: _Shared,
+                   draws: Draws | ScaleDraws, des_r: torch.Tensor,
+                   scale_pos: int):
+    """One scale's patches of all 2B clouds, ([2B, nf, S, 3], [2B, nf, S]):
+    the fused query's, or the scale's own query over the kept matrices with
+    the draws at ``scale_pos``. ``des_r`` [B] is the scale's radius a pair."""
+    if pre.patches is not None:
+        return pre.patches[:, scale_pos], pre.pvalid[:, scale_pos]
+    off = draws.patch[:, scale_pos]                       # [B, 2, ...]
+    return select_patches(
+        pre.xyz, pre.mask, pre.kpts, des_r.repeat(2),
+        torch.cat([off[:, 0], off[:, 1]]), statics.patch_sample,
+        d2=pre.d2[:, :statics.num_fps], use_blocks=statics.block_ball_query,
+        block=statics.bq_block, cand_blocks=statics.bq_cand_blocks,
+        use_strat=statics.strat_ball_query,
+    )
+
+
 def _scale_candidates(models: Models, statics: PipelineStatics,
-                      pre: _Shared, scale: int, scale_pos: int,
-                      is_aligned: bool) -> _Candidates:
+                      pre: _Shared, draws: Draws | ScaleDraws, scale: int,
+                      scale_pos: int, is_aligned: bool) -> _Candidates:
     """One scale of a batch: embed all 2B clouds' patches in ONE pass (a
     per-patch radius divisor), match per pair, predict SO(2), pose
     candidates. ``scale`` indexes the radii, ``scale_pos`` the precomputed
-    patch stack."""
+    patch stack and the per-scale draws."""
     b2, nf = pre.kpts_v.shape
     b = b2 // 2
     des_r = torch.clamp_min(pre.radii[:, scale], 1e-3)           # [B]
-    patches = pre.patches[:, scale_pos].reshape(b2 * nf, -1, 3)
-    pmask = pre.pvalid[:, scale_pos].reshape(b2 * nf, -1)
+    patches, pmask = _scale_patches(statics, pre, draws, des_r, scale_pos)
+    patches = patches.reshape(b2 * nf, -1, 3)
+    pmask = pmask.reshape(b2 * nf, -1)
     kpts = pre.kpts.reshape(b2 * nf, 3)
     aligned, _rand_axis, R2 = align_patches(
         patches - kpts[:, None, :], kpts, is_aligned
@@ -562,16 +649,18 @@ def _pool_and_solve(statics: PipelineStatics, cand: _Candidates,
 
 
 def _batch_candidates(models: Models, statics: PipelineStatics, src: Cloud,
-                      tgt: Cloud, draws: Draws, scales: tuple,
+                      tgt: Cloud, draws: Draws | ScaleDraws, scales: tuple,
                       is_aligned: bool) -> list:
-    """Per-scale candidates of a batch (stacked clouds, batched draws)."""
+    """Per-scale candidates of a batch (stacked clouds, batched draws).
+    ``vmap_scales`` and ``scale_batch_conv`` are the JAX package's
+    schedulings of the same per-scale chain; here it runs unrolled."""
     pre = _precompute(statics, src, tgt, draws, scales)
-    return [_scale_candidates(models, statics, pre, s, j, is_aligned)
+    return [_scale_candidates(models, statics, pre, draws, s, j, is_aligned)
             for j, s in enumerate(scales)]
 
 
 def _register_batch(models: Models, statics: PipelineStatics, src: Cloud,
-                    tgt: Cloud, draws: Draws, scales: tuple,
+                    tgt: Cloud, draws: Draws | ScaleDraws, scales: tuple,
                     is_aligned: bool) -> RegistrationResult:
     """A batch of pairs through the given scales. With
     ``statics.enable_early_exit`` and more than one scale this is the masked
@@ -629,7 +718,7 @@ def _first(res: RegistrationResult) -> RegistrationResult:
 
 
 def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
-                   params, *, draws: Draws | None = None,
+                   params, *, draws: Draws | ScaleDraws | None = None,
                    generator: torch.Generator | None = None,
                    is_aligned: bool | None = None,
                    device="cuda") -> RegistrationResult:
@@ -665,7 +754,7 @@ def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
 
 def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                   generator: torch.Generator | None = None,
-                  draws: Draws | None = None,
+                  draws: Draws | ScaleDraws | None = None,
                   is_aligned: bool | None = None,
                   device="cuda") -> RegistrationResult:
     """Register one scan pair with every scale: :func:`register_batch` on
@@ -711,7 +800,7 @@ def register_pair_early_exit(cfg: Config, src: Cloud, tgt: Cloud, params, *,
 
 def register_pair_timed(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                         generator: torch.Generator | None = None,
-                        draws: Draws | None = None,
+                        draws: Draws | ScaleDraws | None = None,
                         is_aligned: bool | None = None, device="cuda"):
     """Per-phase fenced registration. Returns ``(result, phases)`` with
     ``phases`` in seconds of host wall time, each phase ending in
@@ -786,7 +875,8 @@ def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
     depend on what shares its batch.
 
     ``draws``: per batch a pair ``(phase-1 draws, phase-2 draws)``, each a
-    :class:`Draws` with the batch's length as its leading dimension. As in
+    :class:`Draws` (or :class:`ScaleDraws`) with the batch's length as its
+    leading dimension. As in
     the JAX function, where a redone pair takes the key of its SLOT in the
     redo batch, the r-th redone pair of a batch takes row r of the phase-2
     draws. Without ``draws`` both sets of every batch are made from
@@ -831,7 +921,7 @@ def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
                 if inliers[j] < statics.early_exit_min_inliers]
         res_full = None
         if redo:
-            d2 = Draws(*(x[:len(redo)] for x in d[1]))
+            d2 = type(d[1])(*(x[:len(redo)] for x in d[1]))
             res_full = run([idx[j] for j in redo], d2, all_scales)
         for j, i in enumerate(idx):
             if j in redo:

@@ -207,12 +207,14 @@ def main(argv=None) -> int:
     ap.add_argument("--voxel", type=float, default=0.025,
                     help="noise unit (meters); the sweep is in voxels")
     ap.add_argument("--exact-topk", action="store_true",
-                    help="exact top-k sampling (not ported: raises)")
+                    help="exact top-k sampling (the port's queries are "
+                         "exact already); turns the block query off")
     ap.add_argument("--no-block-ball-query", action="store_true",
-                    help="as in scripts/exp_hard.py: no effect while the "
-                         "stratified query runs")
+                    help="flat ball query instead of the two-level blocks "
+                         "(no effect while the stratified query runs)")
     ap.add_argument("--no-strat", action="store_true",
-                    help="another patch query (not ported: raises)")
+                    help="force the flat/block ball query instead of the "
+                         "fused stratified one")
     ap.add_argument("--no-clutter-filter", action="store_true",
                     help="disable the density clutter prefilter")
     ap.add_argument("--quick", action="store_true",

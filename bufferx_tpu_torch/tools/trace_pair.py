@@ -68,7 +68,8 @@ def _staged(models, statics, src, tgt, draws) -> dict:
     cands = []
     for s in scales:
         t0 = time.perf_counter()
-        cands.append(reg._scale_candidates(models, statics, pre, s, s, False))
+        cands.append(reg._scale_candidates(models, statics, pre, draws, s, s,
+                                           False))
         torch.cuda.synchronize()
         out[f"scale{s}"] = (time.perf_counter() - t0) * 1e3
     del pre
@@ -198,7 +199,7 @@ def main() -> int:
     else:
         # the entry point, its set-up and stacking included
         src1, tgt1 = (reg.Cloud(*(x[0] for x in c)) for c in (src, tgt))
-        draws1 = reg.Draws(*(x[0] for x in draws))
+        draws1 = type(draws)(*(x[0] for x in draws))
         numbers, prof = _profiled(
             lambda: reg.register_pair(cfg, src1, tgt1, models, draws=draws1,
                                       is_aligned=False, device=dev), unit, 1)

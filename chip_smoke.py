@@ -101,7 +101,33 @@ Phases (any failure raises and exits non-zero):
    step accepted, K3 (K4 in sampled mode) launched 2 times a step and no
    other kernel; the trained moments nets written as a snapshot
    (``tools/weights.py``), loaded back with ``load_snapshot`` and its
-   ``config.json``, and phase 4's first pair registered with it.
+   ``config.json``, and phase 4's first pair registered with it;
+11. the dataset entry points at full width on a 3DMatch-layout scene of 8
+   hardsynth pairs (``tools/hard_layout.py``: binary PLY fragments of
+   ~200k points, ``gt.log``, ``gt.info``) written to a temporary
+   directory: ``tools/evaluate.py --dataset 3DMatch`` with the
+   ``hard_moments_r4ft2`` weights, in-process, sequential (the fused query,
+   K1-K3), with ``--batched 8``, with ``--fast`` (the flat query at 4096
+   points), with ``--num-points-per-patch 1024`` (the flat query) and
+   ``128`` (the single-radius stratified query), and with the
+   ``snapshot/hard`` weights (sampled mode, K4) at 1024- and 128-point
+   patches on 2 pairs: launches asserted (K2 0 off the fused query),
+   successes >= the JAX package's count on the same files at the same
+   width less 1, the RMSE protocol's recall, ms a pair and the loaders'
+   data stall; the loader alone on one pair; the four patch queries alone
+   on one pair at 512-point patches; K3 and K4 against their plain
+   versions on the 1024- and 128-point patches; one batch of the flat,
+   single-radius and block queries under the sync-debug mode (no
+   synchronizing call); the gate runner's cells 0, 3 and 6 on the sampled
+   path with the fused conv stack, with ``--no-strat`` (the block query,
+   K2 0) and without, the block query's successes >= the JAX package's
+   on the same pairs less 2; ``tools/train.py --dataset 3DMatch`` from
+   ``snapshot/hard`` on a training manifest of hardsynth pairs at the
+   preset's width (512 correspondences, 512-point patches, 30208 points),
+   3 Desc and 3 Pose steps timed with CUDA events, then one pair served
+   with the result; the ``hard_moments_r4ft2`` descriptor's Desc stage on
+   the same stream, 3 steps timed; K3 and K4 against their plain versions
+   on one training batch's patches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -146,6 +172,35 @@ TRAIN_POOL = 3
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 20
 TRAIN_SAMPLED_STEPS = 5
+# phase 11: hardsynth pairs of the 3DMatch test layout, the gate cells of its
+# block-query run, and the training steps a stage of tools/train.py
+DATASET_PAIRS = 8
+DATASET_GATE_CELLS = (0, 3, 6)
+DATASET_TRAIN_STEPS = 3
+# Successes of the JAX package on phase 11's 8 pairs, on the CPU, with its
+# own draws, one pair at a time:
+#   python3 -m bufferx_tpu_torch.tools.hard_layout --out D
+#   python scripts/evaluate.py --dataset 3DMatch --root D --cpu \
+#       --checkpoint-dir snapshot/hard_moments_r4ft2 [--fast]
+# at full width (30208 points, 1500 keypoints, 512-point patches: the fused
+# query) and at the --fast capacities (4096 points, 384 keypoints, 192-point
+# patches: the flat query). Every tools/evaluate.py run of phase 11 on the
+# moments checkpoint must reach the count at its width less 1.
+JAX_DATASET_SUCCESSES = {"full": 8, "fast": 8}
+# ... and on the sampled checkpoint (snapshot/hard) on the first
+# DATASET_SAMPLED_PAIRS pairs at 1024- and 128-point patches:
+#   python scripts/evaluate.py --dataset 3DMatch --root D --cpu \
+#       --checkpoint-dir snapshot/hard --num-points-per-patch P --max-pairs 2
+# (their runs here must reach it less 1)
+DATASET_SAMPLED_PAIRS = 2
+JAX_DATASET_SAMPLED_SUCCESSES = {1024: 2, 128: 2}
+# ... and on the gate cells of the block-query run, sampled checkpoint, with
+# the unfused conv backbone (the fused one runs in interpret mode on the CPU):
+#   python scripts/exp_hard.py --cpu --desc-mode sampled \
+#       --checkpoint-dir snapshot/hard --no-strat --cells 0,3,6 \
+#       --pairs-per-cell 8 --batch 1
+# (the block-query run here must reach it less 2)
+JAX_DATASET_GATE_SUCCESSES = 17
 # launches per pair: FPS for both clouds in one launch, the stratified query
 # for both clouds and all scales in one launch, then per scale moment pooling
 # ("moments"), or the cell query and the fused conv stack ("sampled" with
@@ -629,10 +684,7 @@ def run_training(torch, cuda_build, reg, se3, make_cfg, dev, serve_pair):
         stack_batches,
         to_device,
     )
-    from bufferx_tpu_torch.geometry import spt_pallas
-    from bufferx_tpu_torch.geometry.cylindrical import grid_cells_on
     from bufferx_tpu_torch.models.layers import ConvBNRelu
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
     from bufferx_tpu_torch.tools.train_synthetic import training_config
     from bufferx_tpu_torch.tools.weights import (
         load_snapshot,
@@ -664,72 +716,8 @@ def run_training(torch, cuda_build, reg, se3, make_cfg, dev, serve_pair):
     aligned, pmask, _R, _a, _aug = tf.training_patches(
         st, b0["src_fds"], b0["src_fds_mask"], b0["src_kpt"], b0["des_r"],
         b0["is_aligned"], dr0.off_src)
-    aligned, pmask = aligned.contiguous(), pmask.contiguous()
-    cells = grid_cells_on(st.rad_n, st.ele_n, st.azi_n, dev)
-    radius = st.delta / st.rad_n
-    r2, azi = radius * radius, st.azi_n
-    got = spt_pallas.spt_moments_cuda(aligned, pmask, cells, r2, ring_len=azi)
-    want = spt_pallas.spt_moments_plain(aligned, pmask, cells, r2)
-    torch.cuda.synchronize()
-    if not torch.equal(got[:, 9], want[:, 9]):
-        raise AssertionError("training: moment counts differ from the plain "
-                             "version")
-    err3 = (got - want).abs()
-    if bool((err3 > 1e-4 + 1e-5 * want.abs()).any()):
-        raise AssertionError(f"training: moment sums off by up to "
-                             f"{float(err3.max())}")
-    kept = int(spt_pallas.ring_candidate_counts_cuda(
-        aligned, pmask, cells, radius, azi).sum()) * azi
-    ns = st_s.voxel_sample
-    got4 = spt_pallas.spt_cell_query_cuda(aligned, pmask, cells, radius, ns,
-                                          ring_len=azi)
-    want4 = spt_pallas.spt_cell_query_plain(aligned, pmask, cells, radius, ns)
-    torch.cuda.synchronize()
-    if not torch.equal(got4, want4):
-        raise AssertionError("training: cell query slots differ from the "
-                             "plain version")
-    kq, p = pmask.shape
-    g = cells.shape[0]
-    cull_ops = 4.0 * float(pmask.sum()) + 6.0 * kq * p * (g // azi) \
-        + 9.0 * kept
-    hits = float(want[:, 9].sum())
-
-    def cdist_bmm():
-        ok = (torch.cdist(cells[None].expand(kq, -1, -1), aligned)
-              <= radius).to(torch.float32)
-        return torch.bmm(ok, spt_pallas.point_moment_features(
-            aligned, pmask)).transpose(1, 2)
-
-    shapes = f"patches {list(aligned.shape)} (training)"
-    entries = [
-        dict(name="moments", case="training", path="training",
-             match="counts exact, sums within 1e-4 + 1e-5|p|",
-             max_abs_err=float(err3.max()),
-             ms=time_ms(lambda: spt_pallas.spt_moments_cuda(
-                 aligned, pmask, cells, r2, ring_len=azi), 20),
-             plain_ms=time_ms(lambda: spt_pallas.spt_moments_plain(
-                 aligned, pmask, cells, r2), 5),
-             library_ms=time_ms(cdist_bmm, 10),
-             bound=bound_ms(kq * p * 13 + g * 12 + kq * 10 * g * 4,
-                            cull_ops + 16.0 * hits),
-             shapes=shapes + f" -> {list(got.shape)}"),
-        dict(name="cell_query", case="training", path="training_sampled",
-             match="bit-exact", max_abs_err=0.0,
-             ms=time_ms(lambda: spt_pallas.spt_cell_query_cuda(
-                 aligned, pmask, cells, radius, ns, ring_len=azi), 20),
-             plain_ms=time_ms(lambda: spt_pallas.spt_cell_query_plain(
-                 aligned, pmask, cells, radius, ns), 5),
-             library_ms=None,
-             bound=bound_ms(kq * p * 13 + g * 12 + got4.numel() * 4,
-                            cull_ops),
-             shapes=shapes + f" -> {list(got4.shape)}"),
-    ]
-    for e in entries:
-        log(f"training {e['name']}: {e['shapes']} matches the plain version; "
-            f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, library "
-            f"{e['library_ms']}, bound {e['bound'][0]:.4f} ms "
-            f"({e['bound'][1]})")
-    del got, want, got4, want4
+    entries = k3_k4_entries(torch, aligned, pmask, st, "training",
+                            ("training", "training_sampled"))
 
     # -- one Desc and one Pose step on the card and on the CPU --
     sd = load_snapshot(SNAPSHOT)
@@ -902,6 +890,473 @@ def run_training(torch, cuda_build, reg, se3, make_cfg, dev, serve_pair):
         served=dict(rte=rte, rre=rre, success=ok), seconds=seconds), entries
 
 
+def k3_k4_entries(torch, normed, pmask, statics, case, paths):
+    """K3 and K4 against their plain versions on ``normed``/``pmask``
+    (normalized aligned patches): moment counts exact and sums within
+    1e-4 + 1e-5 |p|, cell-query slots bit-exact; both timed beside their
+    bounds. ``paths``: the launch paths of the two entries."""
+    from bufferx_tpu_torch.geometry import spt_pallas
+    from bufferx_tpu_torch.geometry.cylindrical import grid_cells_on
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+
+    dev = normed.device
+    normed, pmask = normed.contiguous(), pmask.contiguous()
+    cells = grid_cells_on(statics.rad_n, statics.ele_n, statics.azi_n, dev)
+    radius = statics.delta / statics.rad_n
+    r2, azi, ns = radius * radius, statics.azi_n, statics.voxel_sample
+    got = spt_pallas.spt_moments_cuda(normed, pmask, cells, r2, ring_len=azi)
+    want = spt_pallas.spt_moments_plain(normed, pmask, cells, r2)
+    got4 = spt_pallas.spt_cell_query_cuda(normed, pmask, cells, radius, ns,
+                                          ring_len=azi)
+    want4 = spt_pallas.spt_cell_query_plain(normed, pmask, cells, radius, ns)
+    torch.cuda.synchronize()
+    if not torch.equal(got[:, 9], want[:, 9]):
+        raise AssertionError(f"moments, {case}: counts differ from the plain "
+                             "version")
+    err = (got - want).abs()
+    if bool((err > 1e-4 + 1e-5 * want.abs()).any()):
+        raise AssertionError(f"moments, {case}: sums off by up to "
+                             f"{float(err.max())}")
+    if not torch.equal(got4, want4):
+        raise AssertionError(f"cell_query, {case}: "
+                             f"{int((got4 != want4).any(-1).sum())} slots "
+                             "differ from the plain version")
+    kept = int(spt_pallas.ring_candidate_counts_cuda(
+        normed, pmask, cells, radius, azi).sum()) * azi
+    kq, p = pmask.shape
+    g = cells.shape[0]
+    cull_ops = 4.0 * float(pmask.sum()) + 6.0 * kq * p * (g // azi) \
+        + 9.0 * kept
+    hits = float(want[:, 9].sum())
+
+    def cdist_bmm():
+        ok = (torch.cdist(cells[None].expand(kq, -1, -1), normed)
+              <= radius).to(torch.float32)
+        return torch.bmm(ok, spt_pallas.point_moment_features(
+            normed, pmask)).transpose(1, 2)
+
+    shapes = f"patches {list(normed.shape)} ({case})"
+    entries = [
+        dict(name="moments", case=case, path=paths[0],
+             match="counts exact, sums within 1e-4 + 1e-5|p|",
+             max_abs_err=float(err.max()),
+             ms=time_ms(lambda: spt_pallas.spt_moments_cuda(
+                 normed, pmask, cells, r2, ring_len=azi), 10),
+             plain_ms=time_ms(lambda: spt_pallas.spt_moments_plain(
+                 normed, pmask, cells, r2), 3),
+             library_ms=time_ms(cdist_bmm, 3),
+             bound=bound_ms(kq * p * 13 + g * 12 + kq * 10 * g * 4,
+                            cull_ops + 16.0 * hits),
+             shapes=shapes + f" -> {list(got.shape)}"),
+        dict(name="cell_query", case=case, path=paths[1],
+             match="bit-exact", max_abs_err=0.0,
+             ms=time_ms(lambda: spt_pallas.spt_cell_query_cuda(
+                 normed, pmask, cells, radius, ns, ring_len=azi), 10),
+             plain_ms=time_ms(lambda: spt_pallas.spt_cell_query_plain(
+                 normed, pmask, cells, radius, ns), 3),
+             library_ms=None,
+             bound=bound_ms(kq * p * 13 + g * 12 + got4.numel() * 4,
+                            cull_ops),
+             shapes=shapes + f" -> {list(got4.shape)}"),
+    ]
+    for e in entries:
+        log(f"{e['name']}, {case}: {e['shapes']} matches the plain version; "
+            f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, library "
+            f"{e['library_ms']}, bound {e['bound'][0]:.4f} ms "
+            f"({e['bound'][1]})")
+    return entries
+
+
+def run_dataset_path(torch, cuda_build, reg, se3, dev):
+    """Phase 11: the dataset entry points at full width (see the module
+    notes). Returns (launches by run, what it measured, kernel entries)."""
+    import shutil
+    import tempfile
+
+    from bufferx_tpu_torch.config import make_cfg
+    from bufferx_tpu_torch.data.datasets import get_dataset
+    from bufferx_tpu_torch.geometry.lrf import align_patches
+    from bufferx_tpu_torch.kernels.neighbors import (
+        ball_query_blocks,
+        ball_query_stratified,
+    )
+    from bufferx_tpu_torch.geometry.patches import select_patches
+    from bufferx_tpu_torch.kernels.strat_pallas import (
+        ball_query_stratified_multi,
+    )
+    from bufferx_tpu_torch.tools import evaluate as tev
+    from bufferx_tpu_torch.tools import exp_hard, hard_layout
+    from bufferx_tpu_torch.tools import train as ttrain
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+    from bufferx_tpu_torch.tools.weights import (
+        load_snapshot,
+        load_snapshot_config,
+    )
+    from bufferx_tpu_torch.train import trainer as tt
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="bufferx_dataset_")
+    out_dir = os.path.join(HERE, "chiprun_out", "dataset")
+    launches, measured, entries = {}, {}, []
+    try:
+        t0 = time.perf_counter()
+        scene = hard_layout.write_test_scene(root, DATASET_PAIRS)
+        hard_layout.write_train_manifest(root, pairs=DATASET_TRAIN_STEPS)
+        log(f"dataset: 3DMatch layout of {DATASET_PAIRS} hardsynth pairs "
+            f"(scene {scene}) and a training manifest written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- (a), (b): tools/evaluate.py on the layout ------------------
+        n, ns = DATASET_PAIRS, DATASET_SAMPLED_PAIRS
+        moments = dict(fps=n, strat=0, moments=3 * n)
+        full, fast = (JAX_DATASET_SUCCESSES[k] for k in ("full", "fast"))
+        runs = {   # run -> (checkpoint, flags, expected launches, JAX count)
+            "fused": (SNAPSHOT, [], dict(moments, strat=n), full),
+            "fused_batched": (SNAPSHOT, ["--batched", str(n)],
+                              dict(fps=2, strat=2, moments=6), full),
+            "fast_flat": (SNAPSHOT, ["--fast"], moments, fast),
+            "p1024_flat": (SNAPSHOT, ["--num-points-per-patch", "1024"],
+                           moments, full),
+            "p128_strat1": (SNAPSHOT, ["--num-points-per-patch", "128"],
+                            moments, full),
+        }
+        for p in (1024, 128):
+            runs[f"p{p}_sampled"] = (
+                SNAPSHOT_SAMPLED, ["--num-points-per-patch", str(p),
+                                   "--max-pairs", str(ns)],
+                dict(fps=ns, cell_query=3 * ns),
+                JAX_DATASET_SAMPLED_SUCCESSES[p])
+        cli = {}
+        for label, (snap, flags, want, jax_count) in runs.items():
+            cuda_build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = tev.run(["--dataset", "3DMatch", "--root", root,
+                               "--checkpoint-dir", snap, "--out-dir",
+                               out_dir, "--experiment-id", label] + flags,
+                              log=lambda *_: None)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = {k: kk.launches for k, kk in cuda_build.KERNELS.items()}
+            launches[f"dataset_{label}"] = got
+            want = dict({k: 0 for k in got}, **want)
+            successes = sum(r["success"] for r in summary["rows"])
+            cli[label] = dict(
+                checkpoint=os.path.basename(snap), flags=" ".join(flags),
+                successes=successes, jax_successes=jax_count,
+                pairs=summary["num_pairs"], recall=summary["recall"],
+                rmse_recall=summary.get("rmse_recall"),
+                model_ms_a_pair=summary["model_time_mean"] * 1e3,
+                data_ms_a_pair=summary["data_time_mean"] * 1e3,
+                pairs_per_second=summary.get("pairs_per_second"),
+                seconds=seconds)
+            log(f"dataset, tools/evaluate.py {os.path.basename(snap)} "
+                f"{' '.join(flags) or '(defaults)'}: {successes}/"
+                f"{summary['num_pairs']} successes (JAX package: {jax_count})"
+                f", RMSE recall {summary.get('rmse_recall')}, model "
+                f"{cli[label]['model_ms_a_pair']:.1f} ms a pair, data stall "
+                f"{cli[label]['data_ms_a_pair']:.1f} ms a pair"
+                + (f", {summary['pairs_per_second']:.2f} pairs/s"
+                   if "pairs_per_second" in summary else "")
+                + f", {seconds:.1f} s in all, launches {got}")
+            if got != want:
+                raise AssertionError(f"dataset {label}: launches {got}, "
+                                     f"expected {want}")
+            if summary["num_pairs"] != (ns if "sampled" in label else n):
+                raise AssertionError(f"dataset {label}: "
+                                     f"{summary['num_pairs']} pairs")
+            if successes < jax_count - 1:
+                raise AssertionError(
+                    f"dataset {label}: {successes} successes of "
+                    f"{summary['num_pairs']} < the JAX package's {jax_count}"
+                    " - 1")
+        measured["evaluate"] = cli
+
+        # loader cost alone: one pair read, analysed and downsampled
+        cfg3 = make_cfg("3DMatch", root).override(
+            patch=load_snapshot_config(SNAPSHOT))
+        ds = get_dataset(cfg3)
+        t0 = time.perf_counter()
+        sample = ds[0]
+        measured["loader_ms_a_pair"] = (time.perf_counter() - t0) * 1e3
+        log(f"dataset: the loader takes {measured['loader_ms_a_pair']:.0f} ms "
+            f"a pair on the host (two PLYs, sphericity, voxel grid, cap): "
+            f"{len(sample['src_points'])} + {len(sample['tgt_points'])} "
+            f"points, voxel {sample['voxel_size']}")
+
+        # ---- the queries alone on one pair's d2, and K3/K4 at P = 1024, 128
+        pair_clouds = [reg.prepare_cloud(sample[k], cfg3, seed=s, device=dev)
+                       for s, k in enumerate(("src_points", "tgt_points"))]
+        queries = {}
+        for label, p in (("p1024_flat", 1024), ("p128_strat1", 128),
+                         ("p512", 512)):
+            cfg_p = cfg3.override(patch=dict(num_points_per_patch=p))
+            st = reg.PipelineStatics.from_config(cfg_p)
+            dr = reg.make_draws(st, torch.Generator().manual_seed(p), dev,
+                                batch=1)
+            scales = tuple(range(st.num_scales))
+            pre = reg._precompute(st, reg.stack_clouds(pair_clouds[:1]),
+                                  reg.stack_clouds(pair_clouds[1:]), dr,
+                                  scales, keep_d2=True)
+            if label != "p512":
+                des_r = torch.clamp_min(pre.radii[:, 0], 1e-3)
+                patches, pvalid = reg._scale_patches(st, pre, dr, des_r, 0)
+                kpts = pre.kpts.reshape(-1, 3)
+                aligned, _, _ = align_patches(
+                    patches.reshape(-1, p, 3) - kpts[:, None, :], kpts, False)
+                entries += k3_k4_entries(
+                    torch, aligned / des_r[0], pvalid.reshape(-1, p), st,
+                    f"P = {p}, {'flat' if p == 1024 else 'single-radius'} "
+                    "query, scale 0", (f"dataset_{label}",
+                                       f"dataset_p{p}_sampled"))
+                continue
+            # every query at P = 512 over all three scales, both clouds
+            nf = st.num_fps
+            radii = torch.clamp_min(pre.radii[0], 1e-3)
+            xyz = torch.stack([c.xyz for c in pair_clouds])
+            mask = pre.mask
+            kp = pre.kpts
+            d2 = pre.d2[:, :nf]
+            g = torch.Generator(dev).manual_seed(3)
+            l, s = st.max_points // p, p
+            off_strat = torch.randint(0, l, (2, nf, s), generator=g,
+                                      device=dev, dtype=torch.int32)
+            off_flat = torch.randint(0, st.max_points, (2, nf), generator=g,
+                                     device=dev, dtype=torch.int32)
+            nb = st.max_points // st.bq_block
+            off_blk = torch.stack([
+                torch.randint(0, nb, (2, nf), generator=g, device=dev),
+                torch.randint(0, st.bq_cand_blocks * st.bq_block, (2, nf),
+                              generator=g, device=dev)], dim=1)
+            r3 = radii[None].expand(2, -1).contiguous()
+
+            def fused():
+                return ball_query_stratified_multi(xyz, mask, kp, r3,
+                                                   off_strat, p, d2)
+
+            def per_scale(fn):
+                return lambda: [fn(r) for r in radii]
+
+            queries = {
+                "fused (K2)": time_ms(fused, 10),
+                "single-radius stratified": time_ms(per_scale(
+                    lambda r: ball_query_stratified(
+                        xyz, mask, kp, r.expand(2), off_strat, p, d2)), 5),
+                "block": time_ms(per_scale(
+                    lambda r: ball_query_blocks(
+                        xyz, mask, kp, r.expand(2), off_blk, p, d2,
+                        block=st.bq_block, cand_blocks=st.bq_cand_blocks)), 5),
+                "flat": time_ms(per_scale(
+                    lambda r: select_patches(xyz, mask, kp, r.expand(2),
+                                             off_flat, p, d2=d2)), 5),
+            }
+            log("dataset: patch queries alone, one pair (2 clouds x "
+                f"{nf} keypoints x {st.max_points} points), P = {p}, all "
+                f"{len(radii)} scales: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in queries.items()))
+        measured["query_ms_a_pair_p512"] = queries
+        del pre
+
+        # ---- no synchronizing call inside a batch on the new queries ----
+        sync = {}
+        models3 = reg.build_models(reg.PipelineStatics.from_config(cfg3),
+                                   load_snapshot(SNAPSHOT), dev)
+        for label, over in (("flat", dict(num_points_per_patch=1024)),
+                            ("single-radius", dict(num_points_per_patch=128)),
+                            ("block", dict(strat_ball_query=False,
+                                           block_ball_query=True))):
+            cfg_q = cfg3.override(patch=over)
+            st = reg.PipelineStatics.from_config(cfg_q)
+            dr = reg.make_draws(st, torch.Generator().manual_seed(1), dev,
+                                batch=1)
+            sb = reg.stack_clouds(pair_clouds[:1])
+            tb = reg.stack_clouds(pair_clouds[1:])
+            scales = tuple(range(st.num_scales))
+            reg._register_batch(models3, st, sb, tb, dr, scales, False)
+            calls = sync_calls(torch, lambda: reg._register_batch(
+                models3, st, sb, tb, dr, scales, False))
+            sync[label] = len(calls)
+            log(f"dataset, {label} query: one batch under sync-debug mode, "
+                f"{len(calls)} synchronizing calls {sorted(set(calls))}")
+            if calls:
+                raise AssertionError(f"the {label} query makes the host wait "
+                                     "for the card inside a batch")
+        measured["sync_calls"] = sync
+        del models3
+
+        # ---- (c) the gate runner, block query, sampled path + fused conv -
+        gate = {}
+        sd_s = load_snapshot(SNAPSHOT_SAMPLED)
+        for label, kw in (("gate_blocks", dict(no_strat=True)),
+                          ("gate_fused", {})):
+            cfg_g = exp_hard.gate_config("sampled", SNAPSHOT_SAMPLED,
+                                         ["patch.fused_conv=True"], **kw)
+            st = reg.PipelineStatics.from_config(cfg_g)
+            models_g = reg.build_models(st, sd_s, dev)
+            cells = exp_hard.build_cells(False)
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            rows = [exp_hard.run_cell(cfg_g, models_g, cells[ci], ci,
+                                      pairs_per_cell=GATE_PAIRS,
+                                      num_points=24000, batch=BATCH,
+                                      voxel=0.025, seed=20240, device=dev)
+                    for ci in DATASET_GATE_CELLS]
+            seconds = time.perf_counter() - t0
+            got = {k: kk.launches for k, kk in cuda_build.KERNELS.items()}
+            launches[f"dataset_{label}"] = got
+            nb = len(DATASET_GATE_CELLS)
+            want = {k: 0 for k in got}
+            want.update(fps=nb, strat=nb if label == "gate_fused" else 0,
+                        cell_query=3 * nb,
+                        conv_stack=3 * nb * -(-2 * BATCH * st.num_fps
+                                              // reg.SAMPLED_DESC_CHUNK))
+            if got != want:
+                raise AssertionError(f"dataset {label}: launches {got}, "
+                                     f"expected {want}")
+            succ = sum(sum(r["successes"]) for r in rows)
+            reg_s = sum(r["n"] / r["pairs_per_s"] for r in rows)
+            gate[label] = dict(successes=succ, pairs=sum(r["n"] for r in rows),
+                               recalls=[r["recall"] for r in rows],
+                               pairs_per_s_registration=sum(
+                                   r["n"] for r in rows) / reg_s,
+                               seconds=seconds)
+            log(f"dataset, gate cells {DATASET_GATE_CELLS} sampled + fused "
+                f"conv, {'block' if 'blocks' in label else 'fused'} query: "
+                f"{succ}/{gate[label]['pairs']} successes, recalls "
+                f"{gate[label]['recalls']}, "
+                f"{gate[label]['pairs_per_s_registration']:.2f} pairs/s of "
+                f"registration, launches {got}")
+            del models_g
+        gate["gate_blocks"]["jax_successes"] = JAX_DATASET_GATE_SUCCESSES
+        if gate["gate_blocks"]["successes"] < JAX_DATASET_GATE_SUCCESSES - 2:
+            raise AssertionError(
+                f"dataset gate: the block query registers "
+                f"{gate['gate_blocks']['successes']} pairs < the JAX "
+                f"package's {JAX_DATASET_GATE_SUCCESSES} - 2")
+        measured["gate"] = gate
+
+        # ---- (d) tools/train.py on the training manifest ------------------
+        events = []
+        step = tt.Trainer._step
+
+        def timed_step(self, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(self, batch)
+            end.record()
+            events.append((self.stage, start, end))
+            return m
+
+        cwd = os.getcwd()
+        cuda_build.reset_launch_counts()
+        tt.Trainer._step = timed_step
+        try:
+            os.chdir(root)
+            t0 = time.perf_counter()
+            ttrain.main(["--dataset", "3DMatch", "--root", root, "--epochs",
+                         "1", "--steps-per-epoch", str(DATASET_TRAIN_STEPS),
+                         "--pretrain", SNAPSHOT_SAMPLED, "--experiment-id",
+                         "smoke"], log=lambda *_: None)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            tt.Trainer._step = step
+            os.chdir(cwd)
+        got = {k: kk.launches for k, kk in cuda_build.KERNELS.items()}
+        launches["dataset_train"] = got
+        step_ms = {st_: [a.elapsed_time(b) for s_, a, b in events if s_ == st_]
+                   for st_ in ("Desc", "Pose")}
+        if any(len(v) != DATASET_TRAIN_STEPS for v in step_ms.values()):
+            raise AssertionError(f"dataset training: steps {step_ms}")
+        if got["cell_query"] < 2 * DATASET_TRAIN_STEPS or got["strat"] or \
+                got["fps"] or got["moments"]:
+            raise AssertionError(f"dataset training: launches {got}")
+        snap = os.path.join(root, "snapshot", "3DMatch", "smoke")
+        cfg_t = make_cfg("3DMatch", root)
+
+        # the shipped moments descriptor's Desc stage on the same dataset
+        # stream at the preset's width, through the trainer tools/train.py
+        # drives (which trains the preset's sampled mode): K3 at the
+        # training shapes
+        cfg_m = cfg_t.override(patch=load_snapshot_config(SNAPSHOT))
+        desc_m, _pose_m = tt.train_models(cfg_m, load_snapshot(SNAPSHOT), dev)
+        rs_m = np.random.RandomState(cfg_m.data.manual_seed)
+        events.clear()
+        cuda_build.reset_launch_counts()
+        tt.Trainer._step = timed_step
+        try:
+            tt.Trainer(
+                cfg_m.override(stage="Desc"), "Desc", desc_m, None,
+                ttrain.dataset_stream(cfg_m, get_dataset(cfg_m, "train"),
+                                      DATASET_TRAIN_STEPS, rs_m, dev),
+                ttrain.dataset_stream(cfg_m, get_dataset(cfg_m, "val"), 2,
+                                      rs_m, dev),
+                steps_per_epoch=DATASET_TRAIN_STEPS,
+                snapshot_dir=os.path.join(root, "snapshot_moments"),
+                log=lambda *_: None).train(1)
+            torch.cuda.synchronize()
+        finally:
+            tt.Trainer._step = step
+        got_m = {k: kk.launches for k, kk in cuda_build.KERNELS.items()}
+        launches["dataset_train_moments"] = got_m
+        moments_step_ms = [a.elapsed_time(b) for _s, a, b in events]
+        if len(moments_step_ms) != DATASET_TRAIN_STEPS or \
+                got_m["moments"] < 2 * DATASET_TRAIN_STEPS or \
+                got_m["cell_query"] or got_m["strat"] or got_m["fps"]:
+            raise AssertionError(f"dataset moments training: steps "
+                                 f"{moments_step_ms}, launches {got_m}")
+        del desc_m, _pose_m
+        log(f"dataset, moments Desc stage on the 3DMatch stream: "
+            f"{DATASET_TRAIN_STEPS} steps, ms a step "
+            f"{[round(x, 1) for x in moments_step_ms]}, launches {got_m}")
+        # K3 and K4 on one training batch's patches at the preset's width
+        from bufferx_tpu_torch.train import forward as tf
+
+        st_t = tf.TrainStatics.from_config(cfg_t)
+        b0 = next(iter(ttrain.dataset_stream(
+            cfg_t, get_dataset(cfg_t, "train"), 1, np.random.RandomState(0),
+            dev)()))
+        dr_t = tf.make_train_draws(st_t, cfg_t.capacity.max_points,
+                                   torch.Generator(dev).manual_seed(2), dev)
+        aligned_t, pmask_t, _r, _a, _g = tf.training_patches(
+            st_t, b0["src_fds"], b0["src_fds_mask"], b0["src_kpt"],
+            b0["des_r"], b0["is_aligned"], dr_t.off_src)
+        entries += k3_k4_entries(
+            torch, aligned_t, pmask_t, reg.PipelineStatics.from_config(cfg_t),
+            f"training batch, 3DMatch preset: {cfg_t.train.pos_num} "
+            f"correspondences, {cfg_t.patch.num_points_per_patch}-point "
+            "patches", ("dataset_train_moments", "dataset_train"))
+        res = reg.register_pair(cfg_t, *pair_clouds, load_snapshot(snap),
+                                generator=torch.Generator().manual_seed(0),
+                                device=dev)
+        rte, rre, ok = pose_errors(se3, cfg_t, res.pose,
+                                   torch.as_tensor(sample["relt_pose"],
+                                                   device=dev))
+        if not bool(torch.isfinite(res.pose).all()):
+            raise AssertionError("dataset training: the trained nets serve "
+                                 "no finite pose")
+        measured["train"] = dict(
+            steps=DATASET_TRAIN_STEPS, seconds=train_s,
+            desc_step_ms=step_ms["Desc"], pose_step_ms=step_ms["Pose"],
+            moments_desc_step_ms=moments_step_ms,
+            served_rte=rte, served_rre=rre, served_success=ok)
+        log(f"dataset, tools/train.py (sampled mode from snapshot/hard, "
+            f"3DMatch preset: {cfg_t.train.pos_num} correspondences, "
+            f"{cfg_t.patch.num_points_per_patch}-point patches, "
+            f"{cfg_t.capacity.max_points} points): "
+            f"{DATASET_TRAIN_STEPS} Desc + {DATASET_TRAIN_STEPS} Pose steps, "
+            f"ms a step Desc {[round(x, 1) for x in step_ms['Desc']]}, Pose "
+            f"{[round(x, 1) for x in step_ms['Pose']]}, {train_s:.1f} s with "
+            f"loading and validation, launches {got}; served one pair with "
+            f"the result: RTE {rte:.3f} m, RRE {rre:.2f} deg, success {ok}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    measured["seconds"] = time.perf_counter() - t_phase
+    log(f"dataset phase: {measured['seconds']:.1f} s")
+    return launches, measured, entries
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bufferx_tpu_torch")):
         log("chip_smoke: bufferx_tpu_torch/ is not beside this script")
@@ -994,7 +1449,7 @@ def main() -> int:
     src8 = reg.stack_clouds([p[0] for p in pairs16[:BATCH]])
     tgt8 = reg.stack_clouds([p[1] for p in pairs16[:BATCH]])
     pre = reg._precompute(statics, src8, tgt8, draws8,
-                          tuple(range(statics.num_scales)))
+                          tuple(range(statics.num_scales)), keep_d2=True)
     torch.cuda.synchronize()
     nf, S = statics.num_fps, statics.patch_sample
     first = [0, BATCH]          # the first pair's two clouds
@@ -1544,6 +1999,12 @@ def main() -> int:
                                      dev, pairs[0])
     kernels.extend(train_kernels)
 
+    # ---- 11. the dataset entry points ---------------------------------------
+    launches_ds, dataset, dataset_kernels = run_dataset_path(
+        torch, cuda_build, reg, se3, dev)
+    launches.update(launches_ds)
+    kernels.extend(dataset_kernels)
+
     # ---- result lines -----------------------------------------------------
     out = []
     for kr in kernels:
@@ -1565,6 +2026,7 @@ def main() -> int:
     print(json.dumps({"batched": list(batched.values())}), flush=True)
     print(json.dumps({"gate": gate, "harness": harness}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"dataset": dataset}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,10 @@ configuration (statics field by field), the same ``--set`` parsing and
 Wilson interval; and one cell of the ``--quick`` grid (overlap 0.75, no
 noise; the 3DMatch configuration runs the clutter prefilter on every cell)
 scored by both, 2 pairs in one batch of 2 at the ``--quick`` capacities,
-the port fed the JAX runner's own draws: the same pairs succeed. The
-options whose patch queries the port lacks raise; ``--no-clutter-filter``
-turns the prefilter off.
+the port fed the JAX runner's own draws: the same pairs succeed, also with
+``--no-strat`` (the block query, its draws per scale) and with
+``--exact-topk`` (the fused query; the flag changes no query of the port);
+``--no-clutter-filter`` turns the prefilter off.
 
 Why not the clutter cell: at the ``--quick`` capacities its pairs end with
 3-15 solver inliers, and one prefilter flip (pinned in
@@ -38,6 +39,7 @@ from bufferx_tpu_torch.pipeline import registration as treg
 from bufferx_tpu_torch.tools import exp_hard
 from bufferx_tpu_torch.tools.weights import load_snapshot
 from test_torch_pipeline import SNAP, _jax_draws, few_threads  # noqa: F401
+from test_torch_queries import jax_scale_draws
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SEED, CELL, N_PAIRS = 20240, 2, 2
@@ -52,13 +54,14 @@ def _jax_runner():
     return mod
 
 
-def _jax_config(quick):
-    """The configuration ``scripts/exp_hard.py`` builds with its defaults
-    and ``--checkpoint-dir SNAP``."""
+def _jax_config(quick, exact_topk=False, no_strat=False):
+    """The configuration ``scripts/exp_hard.py`` builds with its defaults,
+    ``--checkpoint-dir SNAP`` and the two query flags."""
     cfg = jax_make_cfg("3DMatch").override(
         data=dict(root=""),
-        patch=dict(desc_mode="moments", exact_topk=False,
-                   block_ball_query=True, strat_ball_query=True),
+        patch=dict(desc_mode="moments", exact_topk=exact_topk,
+                   block_ball_query=not exact_topk,
+                   strat_ball_query=not no_strat),
         test=dict(pose_refine=True),
     )
     cfg = cfg.override(patch=jax_snap_config(SNAP))
@@ -106,8 +109,20 @@ def test_set_parsing_and_wilson():
 
 @pytest.mark.parametrize("flag", ["--exact-topk", "--no-strat"])
 def test_unported_patch_queries_raise(flag):
-    with pytest.raises(NotImplementedError):
-        exp_hard.main(["--cpu", "--quick", "--checkpoint-dir", SNAP, flag])
+    """The two query flags run: their configuration is the JAX runner's,
+    the CLI accepts them, and the ``--quick`` cell scores as the JAX runner
+    scores it with its draws (``--no-strat``: the block query per scale;
+    ``--exact-topk``: the fused query)."""
+    kw = {"--exact-topk": dict(exact_topk=True),
+          "--no-strat": dict(no_strat=True)}[flag]
+    tcfg = exp_hard.gate_config("moments", SNAP, quick=True, **kw)
+    ts = treg.PipelineStatics.from_config(tcfg)
+    js = jreg.PipelineStatics.from_config(_jax_config(True, **kw))
+    for name in ts.__dataclass_fields__:
+        assert getattr(ts, name) == getattr(js, name), name
+    treg._check_ported(ts)
+    assert treg.fused_query(ts) == (flag == "--exact-topk")
+    _check_quick_cell(**kw)
 
 
 def test_no_clutter_filter_and_no_block_ball_query():
@@ -119,10 +134,15 @@ def test_no_clutter_filter_and_no_block_ball_query():
 
 
 def test_quick_cell_matches_the_jax_runner():
+    _check_quick_cell()
+
+
+def _check_quick_cell(exact_topk=False, no_strat=False):
     cell = exp_hard.build_cells(True)[CELL]
     assert (cell["overlap"], cell["noise_vox"], cell["clutter"]) == (0.75, 0.0, 0.0)
-    jcfg = _jax_config(True)
-    tcfg = exp_hard.gate_config("moments", SNAP, quick=True)
+    jcfg = _jax_config(True, exact_topk, no_strat)
+    tcfg = exp_hard.gate_config("moments", SNAP, quick=True,
+                                exact_topk=exact_topk, no_strat=no_strat)
     jst = jreg.PipelineStatics.from_config(jcfg)
     params = {}
     for stage in ("Desc", "Pose"):
@@ -155,7 +175,11 @@ def test_quick_cell_matches_the_jax_runner():
 
     models = treg.build_models(treg.PipelineStatics.from_config(tcfg),
                                load_snapshot(SNAP), "cpu")
-    draws = [treg.stack_draws([_jax_draws(k, jst)[1] for k in keys])]
+    if treg.fused_query(treg.PipelineStatics.from_config(tcfg)):
+        one = [_jax_draws(k, jst)[1] for k in keys]
+    else:
+        one = [jax_scale_draws(k, jst, "blocks") for k in keys]
+    draws = [treg.stack_draws(one)]
     row = exp_hard.run_cell(tcfg, models, cell, CELL,
                             pairs_per_cell=N_PAIRS, num_points=4096,
                             batch=N_PAIRS, voxel=0.025, seed=SEED,

@@ -83,3 +83,17 @@ def test_every_kernel_is_registered():
         path, line = k.replaces.split(":")
         with open(os.path.join(ROOT, path)) as f:
             assert f.readlines()[int(line) - 1].lstrip().startswith("def _")
+
+
+def test_dataset_entry_points_stand_alone():
+    """The dataset entry points and the modules they read are the port's own
+    copies: the loaders, file readers, splits, sphericity, the voxel grid,
+    the patch queries and both CLIs, each among the checked sources."""
+    want = ["data/io.py", "data/splits.py", "data/base.py",
+            "data/datasets.py", "geometry/sphericity.py", "geometry/patches.py",
+            "kernels/neighbors.py", "kernels/voxel.py", "tools/evaluate.py",
+            "tools/train.py"]
+    have = {os.path.relpath(p, os.path.join(ROOT, "bufferx_tpu_torch"))
+            for p in _port_sources()}
+    for rel in want:
+        assert rel in have, rel

@@ -138,7 +138,8 @@ def test_precompute_matches(setup):
     # clouds are stacked source first
     tpre = treg._precompute(tst, treg.stack_clouds([tsrc]),
                             treg.stack_clouds([ttgt]),
-                            treg.stack_draws([draws]), (0, 1, 2))
+                            treg.stack_draws([draws]), (0, 1, 2),
+                            keep_d2=True)
     np.testing.assert_array_equal(tpre.radii[0].numpy(),
                                   np.asarray(jpre.radii))
     for c, side in enumerate(("src", "tgt")):
@@ -271,7 +272,7 @@ def test_register_pair_device_policy(setup, monkeypatch):
     with pytest.raises(RuntimeError):
         treg.register_pair(tcfg, src, tgt, models)           # cuda by default
     with pytest.raises(NotImplementedError):
-        treg.register_pair(tcfg.override(patch=dict(exact_topk=True)),
+        treg.register_pair(tcfg.override(match=dict(pose_estimator="teaser")),
                            src, tgt, models, device="cpu")
     # default draws come from a seeded generator: deterministic
     a = treg.register_pair(tcfg, src, tgt, models, device="cpu")
@@ -301,21 +302,26 @@ def test_empty_cloud_gives_identity(setup, which):
 
 def test_check_ported_options(setup):
     """GNC, IRLS refinement, early exit, the clutter prefilter, the softmax
-    pool and a widened backbone are ported; what is not still raises, and
-    says what."""
+    pool, a widened backbone, exact top-k, the scale scheduling knobs and
+    every patch query are ported; what is not still raises, and says
+    what."""
     _j, tcfg, _p, _m = setup
     for kw in (dict(match=dict(pose_estimator="gnc")),
                dict(test=dict(pose_refine=True)),
                dict(match=dict(enable_early_exit=True)),
                dict(data=dict(clutter_filter=True)),
                dict(patch=dict(desc_pool="softmax")),
-               dict(patch=dict(desc_width=2.0))):
+               dict(patch=dict(desc_width=2.0)),
+               dict(patch=dict(exact_topk=True)),
+               dict(patch=dict(vmap_scales=True)),
+               dict(patch=dict(scale_batch_conv=True)),
+               dict(patch=dict(strat_ball_query=False)),
+               dict(patch=dict(num_points_per_patch=96)),
+               dict(patch=dict(num_points_per_patch=16))):
         treg._check_ported(treg.PipelineStatics.from_config(
             tcfg.override(**kw)))
-    for kw, word in ((dict(patch=dict(exact_topk=True)), "exact_topk"),
-                     (dict(patch=dict(desc_pool="max")), "desc_pool"),
-                     (dict(patch=dict(vmap_scales=True)), "vmap_scales"),
-                     (dict(patch=dict(strat_ball_query=False)), "patch query"),
+    for kw, word in ((dict(patch=dict(desc_pool="max")), "desc_pool"),
+                     (dict(patch=dict(desc_mode="voxel")), "desc_mode"),
                      (dict(match=dict(pose_estimator="teaser")),
                       "pose_estimator")):
         with pytest.raises(NotImplementedError, match=word):

@@ -37,6 +37,7 @@ from bufferx_tpu.data.training import build_training_batch as jax_build_batch
 from bufferx_tpu.data.modelnet import synthetic_pair as jax_synthetic_pair
 from bufferx_tpu.geometry.patches import select_patches as jax_select_patches
 from bufferx_tpu.kernels.neighbors import ball_query as jax_ball_query
+from bufferx_tpu.kernels.neighbors import masked_sqdist as jax_masked_sqdist
 from bufferx_tpu.models.layers import ConvBNRelu as JaxConvBNRelu
 from bufferx_tpu.pipeline.registration import build_models as jax_build_models
 from bufferx_tpu.train import forward as jfwd
@@ -157,11 +158,38 @@ def test_ball_query_and_select_patches_equal_indices(seed):
 
 
 def test_select_patches_refuses_other_queries():
-    z = torch.zeros(8, 3)
-    for kw in (dict(use_blocks=True), dict(use_strat=True)):
-        with pytest.raises(NotImplementedError):
-            select_patches(z, torch.ones(8, dtype=torch.bool), z[:2], 0.1,
-                           torch.zeros(2, dtype=torch.long), 4, **kw)
+    """The block and the stratified branches of ``select_patches`` against
+    the JAX function, with its offsets and its d2: equal patches and masks
+    (``tests/test_torch_queries.py`` holds the dispatch and warnings)."""
+    rs = np.random.RandomState(4)
+    n, k, s = 1024, 40, 32
+    pts = rs.uniform(-1, 1, (n, 3)).astype(np.float32)
+    mask = rs.rand(n) < 0.9
+    centers = pts[rs.choice(n, k)]
+    d2 = np.array(jax_masked_sqdist(
+        jnp.asarray(centers), jnp.asarray(pts), jnp.ones(k, bool),
+        jnp.asarray(mask), precise=False))
+    key = jax.random.PRNGKey(9)
+    k1, k2 = jax.random.split(key)
+    offsets = {
+        "use_blocks": np.stack([
+            np.array(jax.random.randint(k1, (k, 1), 0, n // 32))[:, 0],
+            np.array(jax.random.randint(k2, (k, 1), 0, 32 * 32))[:, 0]]),
+        "use_strat": np.array(jax.random.randint(key, (k, 1, s), 0,
+                                                 n // s))[:, 0],
+    }
+    for flag, off in offsets.items():
+        j_p, j_m = jax_select_patches(
+            jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(centers),
+            np.float32(0.3), key, s, d2=jnp.asarray(d2), **{flag: True})
+        t_p, t_m = select_patches(
+            torch.from_numpy(pts), torch.from_numpy(mask),
+            torch.from_numpy(centers), torch.tensor(np.float32(0.3)),
+            torch.from_numpy(off), s, d2=torch.from_numpy(d2),
+            **{flag: True})
+        assert np.array_equal(np.asarray(j_m), t_m.numpy()), flag
+        assert np.array_equal(np.asarray(j_p), t_p.numpy()), flag
+        assert 0 < float(t_m.float().mean()) < 1, flag
 
 
 # ---- ground-truth correspondences -------------------------------------------
