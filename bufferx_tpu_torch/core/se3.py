@@ -10,8 +10,9 @@ import torch
 
 from bufferx_tpu_torch.device import constant
 
-__all__ = ["transform", "decompose", "integrate", "compute_rte",
-           "compute_rre", "rotation_z"]
+__all__ = ["transform", "decompose", "integrate", "concatenate", "inverse",
+           "compute_rte", "compute_rre", "rotation_z",
+           "axis_angle_to_rotation"]
 
 
 def transform(pts: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
@@ -35,6 +36,18 @@ def integrate(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = constant((0.0, 0.0, 0.0, 1.0), R.dtype,
                       R.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def concatenate(trans1: torch.Tensor, trans2: torch.Tensor) -> torch.Tensor:
+    """Compose two SE(3) transforms: ``trans1 @ trans2``."""
+    return trans1 @ trans2
+
+
+def inverse(trans: torch.Tensor) -> torch.Tensor:
+    """Closed-form SE(3) inverse (no linear solve)."""
+    R, t = decompose(trans)
+    Rt = R.transpose(-1, -2)
+    return integrate(Rt, -(Rt @ t[..., None])[..., 0])
 
 
 def compute_rte(trans_est: torch.Tensor, trans_gt: torch.Tensor) -> torch.Tensor:
@@ -64,3 +77,30 @@ def rotation_z(angle: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def axis_angle_to_rotation(axis_angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: axis-angle vector [..., 3] -> rotation matrix [..., 3, 3],
+    ``I + A K + B K^2`` with ``K = [w]x``, ``A = sin(t)/t`` and ``B = (1 -
+    cos t)/t^2`` on the unnormalized axis, both replaced by their Taylor
+    series below ``t^2 = 1e-8`` (smooth at the zero rotation, where the
+    pose graph's increments start)."""
+    w = axis_angle
+    t2 = torch.sum(w * w, dim=-1)[..., None, None]
+    small = t2 < 1e-8
+    t2c = torch.clamp_min(t2, 1e-8)
+    t = torch.sqrt(t2c)
+    A = torch.where(small, 1.0 - t2 / 6.0, torch.sin(t) / t)
+    B = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(t)) / t2c)
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(wx)
+    K = torch.stack(
+        [
+            torch.stack([zero, -wz, wy], dim=-1),
+            torch.stack([wz, zero, -wx], dim=-1),
+            torch.stack([-wy, wx, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    return eye + A * K + B * (K @ K)

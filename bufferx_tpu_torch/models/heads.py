@@ -11,7 +11,8 @@ with the anti-diagonal-summed kernel, minus a VALID 2D conv of des2 with the
 shift-summed kernel, rebuilt over the shifts by rolls. Nine more 3D convs
 and a softmax expectation over the azimuth bins give a continuous rotation
 index per correspondence. In training mode every BatchNorm uses the
-batch's statistics (in float32) and records them in ``bn_stats``
+batch's statistics (in float32; shared over ``bn_group``'s ranks when it is
+set) and records them in ``bn_stats``
 (:mod:`bufferx_tpu_torch.models.layers`).
 """
 
@@ -41,9 +42,9 @@ class FactoredCostStem(ConvBNRelu):
     the direct 3D conv's [out, in, ds, dke, dl] kernel."""
 
     def __init__(self, azi_n: int, in_features: int = 32, features: int = 32,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__(in_features, features, (3, 3, 3),
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, bn_group=bn_group)
         self.azi_n = azi_n
 
     def forward(self, des1: torch.Tensor, des2: torch.Tensor,
@@ -78,10 +79,11 @@ class CostVolume(nn.Module):
     """src/tgt equivariant maps [B, 32, Ke, L] -> rotation bin index [B]."""
 
     def __init__(self, azi_n: int = 20,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__()
         self.azi_n = azi_n
-        self.stem = FactoredCostStem(azi_n, compute_dtype=compute_dtype)
+        self.stem = FactoredCostStem(azi_n, compute_dtype=compute_dtype,
+                                     bn_group=bn_group)
         specs = [
             (32, 64, (3, 3, 3)),
             (64, 64, (3, 1, 3)),
@@ -92,7 +94,8 @@ class CostVolume(nn.Module):
             (64, 32, (3, 1, 3)),
             (32, 32, (3, 1, 3)),
         ]
-        layers = [ConvBNRelu(ci, co, k, compute_dtype=compute_dtype)
+        layers = [ConvBNRelu(ci, co, k, compute_dtype=compute_dtype,
+                             bn_group=bn_group)
                   for ci, co, k in specs]
         layers.append(ConvBNRelu(32, azi_n, (2, 1, 2), use_bn=False,
                                  use_relu=False, compute_dtype=compute_dtype))

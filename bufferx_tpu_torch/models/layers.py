@@ -19,6 +19,13 @@ but the channels. The forward does not touch the running statistics: it
 records the batch's (mean, var) in the ``bn_stats`` dict it is given, keyed
 by the layer, and :func:`running_stats` folds them into new running
 statistics (``0.9 old + 0.1 batch``) for the caller to store.
+
+With a ``bn_group`` (a :class:`~bufferx_tpu_torch.parallel.mesh.Mesh`, the
+counterpart of the JAX layers' ``bn_axis_name``) the training statistics
+are shared by the group's ranks, as flax's ``BatchNorm(axis_name=...)``
+shares them: each rank's (mean, mean of squares) is averaged over the
+ranks before the variance is formed, and the gradient flows back through
+that average to every rank.
 """
 
 from __future__ import annotations
@@ -86,14 +93,17 @@ def batch_norm(x: torch.Tensor, mean, var, scale=None, bias=None,
     return y
 
 
-def batch_moments(x: torch.Tensor, channel_dim: int = 1):
+def batch_moments(x: torch.Tensor, channel_dim: int = 1, group=None):
     """Training BatchNorm statistics of ``x`` per channel, in (at least)
     float32: the mean and the biased variance ``mean(x^2) - mean(x)^2``
-    clamped at 0."""
+    clamped at 0. With ``group`` (a ``Mesh``) the mean and the mean of
+    squares are first averaged over its ranks, with gradient."""
     x = at_least_f32(x)
     dims = [d for d in range(x.ndim) if d != channel_dim % x.ndim]
     mean = torch.mean(x, dim=dims)
     mean2 = torch.mean(x * x, dim=dims)
+    if group is not None:
+        mean, mean2 = group.mean_with_grad(torch.stack([mean, mean2]))
     return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
 
@@ -121,13 +131,15 @@ class ConvBNRelu(nn.Module):
     ``weight`` is [out, in, *kernel]; BatchNorm keeps its running
     statistics in the buffers ``bn_mean``/``bn_var`` and, when affine,
     ``bn_scale``/``bn_bias``. In training mode BatchNorm uses the batch's
-    statistics and records them in ``bn_stats`` (see the module notes)."""
+    statistics, shared over ``bn_group``'s ranks when it is set, and records
+    them in ``bn_stats`` (see the module notes)."""
 
     def __init__(self, in_features: int, features: int, kernel: Sequence[int],
                  use_bn: bool = True, use_relu: bool = True,
                  bn_affine: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__()
+        self.bn_group = bn_group
         self.kernel = tuple(kernel)
         self.use_bn = use_bn
         self.use_relu = use_relu
@@ -151,7 +163,7 @@ class ConvBNRelu(nn.Module):
         if not self.training:
             return batch_norm(y, self.bn_mean, self.bn_var, scale, bias,
                               channel_dim)
-        mean, var = batch_moments(y, channel_dim)
+        mean, var = batch_moments(y, channel_dim, self.bn_group)
         if bn_stats is not None:
             bn_stats[self] = (mean, var)
         return batch_norm(y, mean, var, scale, bias, channel_dim)
@@ -177,7 +189,7 @@ class CylindricalConvNet(nn.Module):
     Input [K, 16, rad=3, ele, azi] -> output [K, dim, ele, azi] f32."""
 
     def __init__(self, dim: int = 32, width: float = 1.0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__()
 
         def w(c):
@@ -185,10 +197,11 @@ class CylindricalConvNet(nn.Module):
 
         chans = [16, w(64), w(64), w(128), w(128), w(64), w(64), w(32)]
         layers = [ConvBNRelu(16, chans[1], (3, 3, 3),
-                             compute_dtype=compute_dtype)]
+                             compute_dtype=compute_dtype, bn_group=bn_group)]
         for cin, cout in zip(chans[1:-1], chans[2:]):
             layers.append(ConvBNRelu(cin, cout, (3, 3),
-                                     compute_dtype=compute_dtype))
+                                     compute_dtype=compute_dtype,
+                                     bn_group=bn_group))
         layers.append(ConvBNRelu(chans[-1], dim, (3, 3), use_bn=False,
                                  use_relu=False, compute_dtype=compute_dtype))
         self.layers = nn.ModuleList(layers)

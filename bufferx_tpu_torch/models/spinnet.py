@@ -12,7 +12,8 @@ the fused conv stack (kernel K5) under the JAX package's condition.
 with affine BN and ReLU, mean-pooled) or "softmax" (a bare 1x1 conv whose
 logits are normalized by a softmax over the grid). ``width`` multiplies the
 backbone's channels. In training mode (``.train()``) every BatchNorm uses
-the batch's statistics and records them in ``bn_stats``
+the batch's statistics (shared over ``bn_group``'s ranks when it is set,
+the JAX module's ``bn_axis_name``) and records them in ``bn_stats``
 (:mod:`bufferx_tpu_torch.models.layers`).
 """
 
@@ -43,9 +44,9 @@ class PointwiseStem(ConvBNRelu):
     stem of the sampled mode)."""
 
     def __init__(self, features: int = 16, in_features: int = 3,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__(in_features, features, (1, 1), bn_affine=True,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, bn_group=bn_group)
 
     def forward(self, x: torch.Tensor,
                 bn_stats: dict | None = None) -> torch.Tensor:
@@ -64,8 +65,8 @@ class MomentsMajorStem(PointwiseStem):
     stem does)."""
 
     def __init__(self, features: int = 16, in_features: int = 10,
-                 compute_dtype: torch.dtype = torch.float32):
-        super().__init__(features, in_features, compute_dtype)
+                 compute_dtype: torch.dtype = torch.float32, bn_group=None):
+        super().__init__(features, in_features, compute_dtype, bn_group)
 
     def forward(self, x_mm: torch.Tensor,
                 bn_stats: dict | None = None) -> torch.Tensor:
@@ -77,7 +78,7 @@ class MiniSpinNet(nn.Module):
                  dim: int = 32, mode: str = "moments", pool: str = "gated",
                  width: float = 1.0,
                  compute_dtype: torch.dtype = torch.float32,
-                 fused_conv: bool = False):
+                 fused_conv: bool = False, bn_group=None):
         super().__init__()
         if pool not in ("gated", "softmax"):
             raise ValueError(f"MiniSpinNet pool={pool!r}: expected 'gated' "
@@ -89,22 +90,25 @@ class MiniSpinNet(nn.Module):
         self.pool = pool
         self.rad_n, self.ele_n, self.azi_n = rad_n, ele_n, azi_n
         stem = MomentsMajorStem if mode == "moments" else PointwiseStem
-        self.stem = stem(16, compute_dtype=compute_dtype)
+        self.stem = stem(16, compute_dtype=compute_dtype, bn_group=bn_group)
         # the JAX package's condition; the fused module is serving-only and
         # raises in training mode
         self.fused = (fused_conv and (rad_n, ele_n, azi_n) == (3, 7, 20)
                       and compute_dtype == torch.bfloat16 and width == 1.0)
         self.backbone = (FusedCylindricalConvNet(dim) if self.fused
-                         else CylindricalConvNet(dim, width, compute_dtype))
+                         else CylindricalConvNet(dim, width, compute_dtype,
+                                                 bn_group))
         self.att_hidden = ConvBNRelu(dim, 16, (1, 1), bn_affine=True,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype,
+                                     bn_group=bn_group)
         if pool == "softmax":
             self.att_gate = ConvBNRelu(16, 1, (1, 1), use_bn=False,
                                        use_relu=False,
                                        compute_dtype=compute_dtype)
         else:
             self.att_gate = ConvBNRelu(16, 1, (1, 1), bn_affine=True,
-                                       compute_dtype=compute_dtype)
+                                       compute_dtype=compute_dtype,
+                                       bn_group=bn_group)
 
     def forward(self, x_in: torch.Tensor,
                 bn_stats: dict | None = None) -> dict:

@@ -288,17 +288,18 @@ def _scale_query(s: PipelineStatics) -> str:
 
 
 def build_models(statics: PipelineStatics, state_dicts: dict,
-                 device="cuda") -> Models:
+                 device="cuda", bn_group=None) -> Models:
     """Descriptor net and cost-volume head with loaded weights (bf16
     convs when ``statics.use_bf16``, as the JAX serving path runs; the
-    fused conv stack when ``statics.fused_conv`` and the net qualifies)."""
+    fused conv stack when ``statics.fused_conv`` and the net qualifies).
+    ``bn_group``: the ranks that share training BatchNorm statistics."""
     dev = resolve_device(device)
     dt = torch.bfloat16 if statics.use_bf16 else torch.float32
     desc = MiniSpinNet(statics.rad_n, statics.ele_n, statics.azi_n,
                        mode=statics.desc_mode, pool=statics.desc_pool,
                        width=statics.desc_width, compute_dtype=dt,
-                       fused_conv=statics.fused_conv)
-    pose = CostVolume(statics.azi_n, compute_dtype=dt)
+                       fused_conv=statics.fused_conv, bn_group=bn_group)
+    pose = CostVolume(statics.azi_n, compute_dtype=dt, bn_group=bn_group)
     desc.load_state_dict(state_dicts["desc"], strict=True)
     pose.load_state_dict(state_dicts["pose"], strict=True)
     return Models(desc.to(dev).eval(), pose.to(dev).eval())

@@ -156,13 +156,16 @@ def guarded_update(optimizer: Optimizer, grads: dict, opt_state: AdamState,
     return new_params, kept, ok
 
 
-def train_models(cfg: Config, state_dicts: dict, device="cuda"):
+def train_models(cfg: Config, state_dicts: dict, device="cuda",
+                 bn_group=None):
     """(MiniSpinNet, CostVolume) with the given weights in float32 with the
     cuDNN backbone (the fused stack is serving-only) and in training mode,
-    for :func:`make_train_step`."""
+    for :func:`make_train_step`; with ``bn_group`` (a ``Mesh``) their
+    BatchNorm statistics are shared over its ranks, for
+    :func:`~bufferx_tpu_torch.parallel.sharded.make_sharded_train_step`."""
     statics = dataclasses.replace(PipelineStatics.from_config(cfg),
                                   use_bf16=False, fused_conv=False)
-    desc, pose = build_models(statics, state_dicts, device)
+    desc, pose = build_models(statics, state_dicts, device, bn_group)
     return desc.train(), pose.train()
 
 

@@ -127,7 +127,22 @@ Phases (any failure raises and exits non-zero):
    3 Desc and 3 Pose steps timed with CUDA events, then one pair served
    with the result; the ``hard_moments_r4ft2`` descriptor's Desc stage on
    the same stream, 3 steps timed; K3 and K4 against their plain versions
-   on one training batch's patches.
+   on one training batch's patches;
+12. the multi-frame front end and the distributed layer:
+   ``tools/exp_multiframe.py`` (a) at its defaults (50 frames, 55 edges,
+   4096 points, ``hard_moments_r4ft2``) and (b) at the main path's capacity
+   (30208 points, 20 frames), each a warm-up and a timed run: edges
+   registered >= the JAX package's count on the same frames less 1, the
+   refined ATE <= JAX's + 0.02 m, K1-K3 launched (the counts of (a) give
+   the ``multiframe`` launches, those of (b) ``multiframe_30208``); K1, K2
+   and K3 against their plain versions at each run's batch shapes (16
+   clouds of 4096 points; 16 clouds of 30208 points); no synchronizing
+   call in a batch of its edges, in the GN loop or in the BA loop; GN on
+   (a)'s graph and BA on a synthetic problem (50 frames, 2000 landmarks,
+   20000 observations, the chain's factors) on the card in float32 against
+   the CPU in float64 (pose entries within 1e-4), ms a call, one profiled
+   call of each (device time, launches); ``entry()`` on
+   the card and ``dryrun_multichip(torch.cuda.device_count())`` over NCCL.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1357,6 +1372,324 @@ def run_dataset_path(torch, cuda_build, reg, se3, dev):
     return launches, measured, entries
 
 
+# phase 12: the multi-frame tool's runs. The JAX package's numbers on the
+# same frames (the same trajectory, clouds, configuration and checkpoint), on
+# the CPU, with its own draws:
+#   python scripts/exp_multiframe.py --cpu [--num-points 30208 --frames 20]
+# (a) at the defaults: 55 of 55 edges registered, ATE chained 0.0774 m,
+#     refined 0.0620 m; (b) at the main path's capacity (30208 points, 20
+#     frames, 22 edges): 22 of 22, ATE chained 0.0638 m, refined 0.0497 m.
+# Each run here must register the JAX count less 1 and refine to within
+# 0.02 m of JAX's ATE.
+MF_RUNS = {
+    "a": dict(argv=[], edges=55, registered=55, ate_refined=0.0620,
+              path="multiframe"),
+    "b": dict(argv=["--num-points", "30208", "--frames", "20"], edges=22,
+              registered=22, ate_refined=0.0497, path="multiframe_30208"),
+}
+MF_GN_BA_TOL = 1e-4     # card float32 against the CPU's float64, pose entries
+
+
+def synthetic_ba(rs, frames=50, landmarks=2000, per_landmark=10,
+                 noise=0.002):
+    """A bundle-adjustment problem on the multi-frame tool's trajectory:
+    ``landmarks`` points in the room, each seen from ``per_landmark``
+    random frames (noise in metres), poses but frame 0 and landmarks
+    perturbed, the chain's exact relative poses as factors. Returns (gt
+    poses, gt landmarks, (frame, landmark, local) observations, initial
+    poses, initial landmarks, chain relative poses), float64 numpy."""
+    from bufferx_tpu_torch.tools.exp_multiframe import make_trajectory
+
+    poses = np.stack(make_trajectory(frames, 1.6, rs))
+    lms = np.concatenate([rs.uniform(-3, 3, (landmarks, 2)),
+                          rs.uniform(0, 2, (landmarks, 1))], axis=1)
+    of = np.concatenate([rs.choice(frames, per_landmark, replace=False)
+                         for _ in range(landmarks)])
+    ol = np.repeat(np.arange(landmarks), per_landmark)
+    R, t = poses[of, :3, :3], poses[of, :3, 3]
+    oz = np.einsum("mji,mj->mi", R, lms[ol] - t) \
+        + rs.randn(len(of), 3) * noise
+    p0 = poses.copy()
+    for i in range(1, frames):
+        a = rs.uniform(-0.05, 0.05)
+        c, s_ = np.cos(a), np.sin(a)
+        p0[i, :3, :3] = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]]) \
+            @ p0[i, :3, :3]
+        p0[i, :3, 3] += rs.uniform(-0.1, 0.1, 3)
+    l0 = lms + rs.uniform(-0.1, 0.1, lms.shape)
+    rel = np.stack([np.linalg.inv(poses[i]) @ poses[i + 1]
+                    for i in range(frames - 1)])
+    return poses, lms, (of, ol, oz), p0, l0, rel
+
+
+def multiframe_kernel_entries(torch, reg, mf_setup, dev, path):
+    """K1, K2 and K3 against their plain versions at the shapes the
+    multi-frame tool's batches give them: the first 8 edges' precompute
+    (16 clouds of the run's points, 512 probes, 256-point patches).
+    ``path``: the launch path of the entries (the run's counts)."""
+    from bufferx_tpu_torch.geometry.lrf import align_patches
+    from bufferx_tpu_torch.kernels import fps as fps_mod
+    from bufferx_tpu_torch.kernels import strat_pallas
+    from bufferx_tpu_torch.tools import bench_strat
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+
+    cfg = mf_setup["cfg"]
+    statics = reg.PipelineStatics.from_config(cfg)
+    edges = mf_setup["edges"][:BATCH]
+    prepared = {i: reg.prepare_cloud(mf_setup["clouds"][i], cfg, seed=i,
+                                     device=dev)
+                for i in sorted({i for e in edges for i in e})}
+    src8 = reg.stack_clouds([prepared[i] for i, _ in edges])
+    tgt8 = reg.stack_clouds([prepared[j] for _, j in edges])
+    draws8 = reg.make_draws(statics, torch.Generator(device=dev).manual_seed(0),
+                            dev, batch=BATCH)
+    pre = reg._precompute(statics, src8, tgt8, draws8,
+                          tuple(range(statics.num_scales)), keep_d2=True)
+    torch.cuda.synchronize()
+    n_pts = cfg.capacity.max_points
+    case = f"multi-frame batch, {2 * BATCH} clouds of {n_pts} points"
+    entries = []
+
+    xyz16 = torch.cat([src8.xyz, tgt8.xyz])
+    mask16 = torch.cat([src8.mask, tgt8.mask])
+    k = statics.num_probe
+    got = fps_mod.farthest_point_sampling_cuda(xyz16, mask16, k)
+    want = fps_mod.farthest_point_sampling_plain(xyz16, mask16, k)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"fps, {case}: {int((got != want).sum())} "
+                             "indices differ from the plain version")
+    b, n = mask16.shape
+    entries.append(dict(
+        name="fps", case=case, path=path, match="indices exact",
+        max_abs_err=0.0, library_ms=None,
+        ms=time_ms(lambda: fps_mod.farthest_point_sampling_cuda(
+            xyz16, mask16, k), 5),
+        plain_ms=time_ms(lambda: fps_mod.farthest_point_sampling_plain(
+            xyz16, mask16, k), 2),
+        bound=bound_ms(b * n * 13 + b * k * 4, 9.0 * b * k * n),
+        shapes=f"xyz {list(xyz16.shape)} -> idx [{b}, {k}]"))
+
+    nf, S = statics.num_fps, statics.patch_sample
+    q16, _lo, _res = strat_pallas.quantize(xyz16, mask16)
+    L = statics.max_points // S
+    q_t = q16.reshape(b, L, S, 3).permute(0, 3, 1, 2).contiguous()
+    radii2 = (torch.clamp_min(torch.cat([pre.radii, pre.radii]), 1e-3)
+              ** 2).contiguous()
+    off = torch.cat([draws8.strat_src, draws8.strat_tgt]).contiguous()
+    args = (pre.d2[:, :nf], q_t, off, radii2)
+    got = strat_pallas.strat_packed_cuda(*args)
+    want = strat_pallas.strat_packed_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"strat, {case}: {int((got != want).sum())} "
+                             "packed words differ from the plain version")
+    entries.append(dict(
+        name="strat", case=case, path=path, match="bit-exact",
+        max_abs_err=0.0, library_ms=None,
+        ms=time_ms(lambda: strat_pallas.strat_packed_cuda(*args), 20),
+        plain_ms=time_ms(lambda: strat_pallas.strat_packed_plain(*args), 2),
+        bound=bound_ms(bench_strat.strat_bytes(*args),
+                       args[0].numel() * (2.0 + 3.0 * statics.num_scales)),
+        shapes=f"d2 {list(args[0].shape)}, R = {statics.num_scales} -> "
+               f"packed {list(got.shape)}"))
+    del got, want, args
+
+    patches = pre.patches[:, 0].reshape(b * nf, S, 3)
+    pmask = pre.pvalid[:, 0].reshape(b * nf, S)
+    kpts = pre.kpts.reshape(b * nf, 3)
+    aligned, _, _ = align_patches(patches - kpts[:, None, :], kpts, False)
+    r_patch = torch.clamp_min(torch.cat([pre.radii[:, 0], pre.radii[:, 0]]),
+                              1e-3).repeat_interleave(nf)
+    normed = aligned / r_patch[:, None, None]
+    moments = k3_k4_entries(torch, normed, pmask, statics, case,
+                            (path, path))[0]
+    entries.append(moments)
+    return entries, (src8, tgt8, draws8)
+
+
+def run_multiframe(torch, cuda_build, reg, se3, dev):
+    """Phase 12: the multi-frame front end and the distributed layer (see
+    the module notes). Returns (launches of runs (a) and (b), what it
+    measured, kernel entries)."""
+    import dataclasses
+
+    from bufferx_tpu_torch.parallel import bundle as ba
+    from bufferx_tpu_torch.parallel import posegraph as pg
+    from bufferx_tpu_torch.tools import dryrun
+    from bufferx_tpu_torch.tools import exp_multiframe as mf
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+    from bufferx_tpu_torch.tools.trace_pair import _profiled
+
+    t_phase = time.perf_counter()
+    measured, launches, setups = {}, {}, {}
+    for run, spec in MF_RUNS.items():
+        args = mf.parse_args(spec["argv"])
+        t0 = time.perf_counter()
+        s = mf.setup(args, dev)
+        t1 = time.perf_counter()
+        mf.run_sequence(s, args)                  # warm-up
+        log(f"multi-frame ({run}): set-up {t1 - t0:.1f} s, warm-up run "
+            f"{time.perf_counter() - t1:.1f} s")
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = mf.run_sequence(s, args)
+        reg_s = time.perf_counter() - t0
+        counts = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
+        summary = mf.summarize(s, args, result, reg_s, 1)
+        summary["launches"] = counts
+        log(f"multi-frame ({run}) {spec['argv']}: {json.dumps(summary)}")
+        if summary["edges"] != spec["edges"]:
+            raise AssertionError(f"multi-frame ({run}): {summary['edges']} "
+                                 f"edges, expected {spec['edges']}")
+        for kname in ("fps", "strat", "moments"):
+            if counts[kname] < 1:
+                raise AssertionError(f"multi-frame ({run}): {kname} never "
+                                     "launched")
+        if summary["edges_registered"] < spec["registered"] - 1:
+            raise AssertionError(
+                f"multi-frame ({run}): {summary['edges_registered']} edges "
+                f"registered < the JAX package's {spec['registered']} - 1")
+        if summary["ate_refined"] > spec["ate_refined"] + 0.02:
+            raise AssertionError(
+                f"multi-frame ({run}): ATE refined {summary['ate_refined']} "
+                f"> the JAX package's {spec['ate_refined']} + 0.02")
+        measured[run] = summary
+        launches[spec["path"]] = counts
+        setups[run] = s
+        if run == "a":
+            args_a, result_a = args, result
+
+    # (c) K1-K3 at each run's batch shapes; no synchronizing call in a
+    # batch of its edges nor in the GN loop
+    t0 = time.perf_counter()
+    entries, _ = multiframe_kernel_entries(torch, reg, setups["b"], dev,
+                                           MF_RUNS["b"]["path"])
+    setup_a = setups["a"]
+    entries_a, (src8, tgt8, draws8) = multiframe_kernel_entries(
+        torch, reg, setup_a, dev, MF_RUNS["a"]["path"])
+    entries += entries_a
+    log(f"multi-frame kernel checks: {time.perf_counter() - t0:.1f} s")
+    statics = dataclasses.replace(
+        reg.PipelineStatics.from_config(setup_a["cfg"]),
+        enable_early_exit=False)
+    syncs = sync_calls(torch, lambda: reg._register_batch(
+        setup_a["models"], statics, src8, tgt8, draws8, (0,), False))
+    if syncs:
+        raise AssertionError(f"multi-frame batch: synchronizing calls at "
+                             f"{syncs}")
+    k = args_a.frames
+    graph = result_a.graph
+    init = pg.chain_initialization(graph, k)
+    gn_kw = dict(num_poses=k, num_iters=args_a.gn_iters, robust="huber",
+                 robust_scale=0.3)
+    syncs = sync_calls(torch, lambda: pg.pose_graph_gauss_newton(
+        graph, init, **gn_kw))
+    if syncs:
+        raise AssertionError(f"GN loop: synchronizing calls at {syncs}")
+
+    # (d) GN on (a)'s graph and BA on a synthetic problem, card (float32)
+    # against the CPU (float64)
+    t_d = time.perf_counter()
+    gn = pg.pose_graph_gauss_newton(graph, init, **gn_kw)
+    graph64 = pg.PoseGraph(graph.edges_i.cpu(), graph.edges_j.cpu(),
+                           graph.t_meas.cpu().double(),
+                           graph.weights.cpu().double())
+    t0 = time.perf_counter()
+    gn64 = pg.pose_graph_gauss_newton(graph64, init.cpu().double(), **gn_kw)
+    gn_cpu_ms = (time.perf_counter() - t0) * 1e3
+    gn_err = float((gn.cpu().double() - gn64).abs().max())
+    if gn_err > MF_GN_BA_TOL:
+        raise AssertionError(f"GN: card and CPU float64 differ by {gn_err}")
+    gn_ms = time_ms(lambda: pg.pose_graph_gauss_newton(graph, init, **gn_kw),
+                    5)
+    poses_gt, lms_gt, (of, ol, oz), p0, l0, rel = synthetic_ba(
+        np.random.RandomState(0))
+    n_f, n_l = len(poses_gt), len(lms_gt)
+
+    def ba_problem(device, dtype):
+        obs = ba.LandmarkGraph(
+            torch.from_numpy(of).to(device), torch.from_numpy(ol).to(device),
+            torch.from_numpy(oz).to(device, dtype),
+            torch.ones(len(of), dtype=dtype, device=device))
+        chain = pg.PoseGraph(
+            torch.arange(n_f - 1, device=device),
+            torch.arange(1, n_f, device=device),
+            torch.from_numpy(rel).to(device, dtype),
+            torch.ones(n_f - 1, dtype=dtype, device=device))
+        return (torch.from_numpy(p0).to(device, dtype),
+                torch.from_numpy(l0).to(device, dtype), obs, chain)
+
+    ba_kw = dict(num_poses=n_f, num_lms=n_l, num_iters=10)
+    p_c, l_c, obs_c, chain_c = ba_problem(dev, torch.float32)
+
+    def ba_card():
+        return ba.bundle_adjust(p_c, l_c, obs_c, pose_graph=chain_c, **ba_kw)
+
+    syncs = sync_calls(torch, ba_card)
+    if syncs:
+        raise AssertionError(f"BA loop: synchronizing calls at {syncs}")
+    ba_p, ba_l = ba_card()
+    p_h, l_h, obs_h, chain_h = ba_problem("cpu", torch.float64)
+    t0 = time.perf_counter()
+    ba_p64, ba_l64 = ba.bundle_adjust(p_h, l_h, obs_h, pose_graph=chain_h,
+                                      **ba_kw)
+    ba_cpu_ms = (time.perf_counter() - t0) * 1e3
+    ba_err = max(float((ba_p.cpu().double() - ba_p64).abs().max()),
+                 float((ba_l.cpu().double() - ba_l64).abs().max()))
+    if ba_err > MF_GN_BA_TOL:
+        raise AssertionError(f"BA: card and CPU float64 differ by {ba_err}")
+    ba_gt = float(np.abs(ba_p64.numpy() - poses_gt).max())
+    if ba_gt > 0.01:
+        raise AssertionError(f"BA: poses {ba_gt} from the ground truth")
+    ba_ms = time_ms(ba_card, 3)
+    # device time against launches: one profiled call of each loop (a
+    # profiled run of a whole sequence, ~92k launches, takes the profiler
+    # about a minute to process)
+    gn_prof, _ = _profiled(lambda: pg.pose_graph_gauss_newton(
+        graph, init, **gn_kw), "GN", 1)
+    ba_prof, _ = _profiled(ba_card, "BA", 1)
+    measured["profiles"] = {"gn": gn_prof, "ba": ba_prof}
+    log(f"GN, BA and the profiles: {time.perf_counter() - t_d:.1f} s")
+    measured["gn"] = dict(frames=k, factors=int(graph.weights.shape[0]),
+                          iters=args_a.gn_iters, ms=gn_ms, cpu_f64_ms=gn_cpu_ms,
+                          max_abs_err_vs_f64=gn_err)
+    measured["ba"] = dict(frames=n_f, landmarks=n_l, observations=len(of),
+                          chain_factors=n_f - 1, iters=10, ms=ba_ms,
+                          cpu_f64_ms=ba_cpu_ms, max_abs_err_vs_f64=ba_err,
+                          max_pose_err_vs_gt=ba_gt)
+    log(f"GN ({k} frames, {measured['gn']['factors']} factors, "
+        f"{args_a.gn_iters} iterations): {gn_ms:.2f} ms on the card, CPU "
+        f"float64 {gn_cpu_ms:.1f} ms, max difference {gn_err:.2e}; BA "
+        f"({n_f} frames, {n_l} landmarks, {len(of)} observations, 10 "
+        f"iterations): {ba_ms:.2f} ms on the card, CPU float64 "
+        f"{ba_cpu_ms:.1f} ms, max difference {ba_err:.2e}; no synchronizing "
+        "call in a batch, the GN loop or the BA loop")
+
+    # (e) the dry run: entry() on the card, then the training step, the
+    # sharded eval and the sharded GN over one NCCL rank a card
+    fn, example = dryrun.entry(dev)
+    out = fn(*example)
+    if not bool(torch.isfinite(out.pose).all()):
+        raise AssertionError("entry(): pose not finite")
+    t0 = time.perf_counter()
+    ranks = dryrun.dryrun_multichip(torch.cuda.device_count())
+    dry_s = time.perf_counter() - t0
+    backends = sorted({r["backend"] for r in ranks})
+    if backends != ["nccl"] or not all(np.isfinite(r["loss"]) for r in ranks):
+        raise AssertionError(f"dry run: backends {backends}, losses "
+                             f"{[r['loss'] for r in ranks]}")
+    measured["dryrun"] = dict(ranks=len(ranks), backend=backends[0],
+                              seconds=dry_s,
+                              loss=[r["loss"] for r in ranks],
+                              devices=[r["device"] for r in ranks])
+    log(f"dry run over {len(ranks)} NCCL rank(s): {dry_s:.1f} s, loss "
+        f"{measured['dryrun']['loss']}")
+    measured["seconds"] = time.perf_counter() - t_phase
+    log(f"multi-frame phase: {measured['seconds']:.1f} s")
+    return launches, measured, entries
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "bufferx_tpu_torch")):
         log("chip_smoke: bufferx_tpu_torch/ is not beside this script")
@@ -2005,6 +2338,12 @@ def main() -> int:
     launches.update(launches_ds)
     kernels.extend(dataset_kernels)
 
+    # ---- 12. the multi-frame front end and the distributed layer -----------
+    launches_mf, multiframe, mf_kernels = run_multiframe(
+        torch, cuda_build, reg, se3, dev)
+    launches.update(launches_mf)
+    kernels.extend(mf_kernels)
+
     # ---- result lines -----------------------------------------------------
     out = []
     for kr in kernels:
@@ -2027,6 +2366,7 @@ def main() -> int:
     print(json.dumps({"gate": gate, "harness": harness}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"dataset": dataset}), flush=True)
+    print(json.dumps({"multiframe": multiframe}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,3 +97,27 @@ def test_dataset_entry_points_stand_alone():
             for p in _port_sources()}
     for rel in want:
         assert rel in have, rel
+
+
+def test_multiframe_and_distributed_stand_alone():
+    """The multi-frame front end, the distributed layer and their tools are
+    among the checked sources (no JAX, flax or JAX package imports), and
+    importing them loads none of those."""
+    want = ["parallel/__init__.py", "parallel/mesh.py", "parallel/posegraph.py",
+            "parallel/bundle.py", "parallel/sharded.py",
+            "pipeline/multiframe.py", "tools/exp_multiframe.py",
+            "tools/dryrun.py"]
+    have = {os.path.relpath(p, os.path.join(ROOT, "bufferx_tpu_torch"))
+            for p in _port_sources()}
+    for rel in want:
+        assert rel in have, rel
+    code = ("import sys\n"
+            "import bufferx_tpu_torch.parallel\n"
+            "import bufferx_tpu_torch.pipeline.multiframe\n"
+            "import bufferx_tpu_torch.tools.exp_multiframe\n"
+            "import bufferx_tpu_torch.tools.dryrun\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(FORBIDDEN) + ")\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
