@@ -142,7 +142,31 @@ Phases (any failure raises and exits non-zero):
    20000 observations, the chain's factors) on the card in float32 against
    the CPU in float64 (pose entries within 1e-4), ms a call, one profiled
    call of each (device time, launches); ``entry()`` on
-   the card and ``dryrun_multichip(torch.cuda.device_count())`` over NCCL.
+   the card and ``dryrun_multichip(torch.cuda.device_count())`` over NCCL;
+13. the offline tools at full width: (a) a synthetic raw ScanNet++ iPhone
+   scene (``write_iphone_scene``: a room of boxes ray-cast at 192 x 256,
+   200 frames, a raw-deflate depth stream and the poses' JSON) through
+   ``tools/scannetpp.py:prepare_scene`` on the card with the reference's
+   defaults (500^3 voxels at 6 mm, band 0.2, 4 fragments of 50 frames,
+   every candidate pair scored): fragments, points and accepted pairs
+   against the JAX package's on the same scene (``JAX_IPHONE``; points
+   within ``IPHONE_POINT_TOL``, pairs exactly), the card's volume after 2
+   frames against the CPU's at the full grid (``IPHONE_CARD_CPU_FLIPS``),
+   ms a frame of ``integrate_frame`` (CUDA events, 50 frames) beside its
+   bound by bytes, s a fragment, peak memory; (b) the fragments through
+   ``tools/evaluate.py --dataset Scannetpp_iphone`` with the
+   ``hard_moments_r4ft2`` weights, on the ``gt.log`` as written and inverted
+   (``gt_log_inverted``: the fault of ROADMAP Queue 3), successes >= the
+   JAX package's on each less 1, K1-K3 launches asserted and held against
+   their plain versions at one pair's shapes; (c) ``snapshot/hard`` written
+   as the reference's ``{Desc,Pose}/best.pth`` (``reference_state_dict``)
+   and imported with ``tools/import_reference_checkpoint.py``: every array
+   equal to ``snapshot/hard``'s, its bytes once the keys are in pytree
+   order, and phase 4b's 4 pairs registered with it (poses equal to phase
+   4b's, or within 1e-5 m / 1e-4 degrees; K1 1, K2 1, K4 3, K5 3 a pair);
+   (d) ``tools/bench_scaling.py`` at its defaults over the card's one NCCL
+   rank (a spawned process): its JSON lines, pairs/s, its launches a run,
+   and K1, K2 and K4 against their plain versions at its batch's shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -336,10 +360,12 @@ def cell_edge_cases(grid_cell_centers):
     ]
 
 
-def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs):
+def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs,
+             poses=None):
     """One warm-up, then ``register_pair`` on every pair with the launch
     counts set to 0 just before and read just after; asserts the launches
-    per pair, finite poses and the success count. Returns the counts."""
+    per pair, finite poses and the success count. Returns the counts, and
+    appends each pose to ``poses`` when given."""
     gen = torch.Generator()
     dev = pairs[0][2].device
     reg.register_pair(cfg, pairs[0][0], pairs[0][1], models,
@@ -360,6 +386,8 @@ def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs):
                 raise AssertionError(f"{name} pair {i}: {kname} launched "
                                      f"{got_n} times, expected {want_n}")
         pose = res.pose
+        if poses is not None:
+            poses.append(pose.clone())
         if pose.shape != (4, 4) or not bool(torch.isfinite(pose).all()):
             raise AssertionError(f"{name} pair {i}: pose not a finite 4x4: "
                                  f"{pose}")
@@ -1427,27 +1455,39 @@ def multiframe_kernel_entries(torch, reg, mf_setup, dev, path):
     multi-frame tool's batches give them: the first 8 edges' precompute
     (16 clouds of the run's points, 512 probes, 256-point patches).
     ``path``: the launch path of the entries (the run's counts)."""
+    cfg = mf_setup["cfg"]
+    edges = mf_setup["edges"][:BATCH]
+    prepared = {i: reg.prepare_cloud(mf_setup["clouds"][i], cfg, seed=i,
+                                     device=dev)
+                for i in sorted({i for e in edges for i in e})}
+    return batch_kernel_entries(
+        torch, reg, cfg, [prepared[i] for i, _ in edges],
+        [prepared[j] for _, j in edges], dev, path,
+        f"multi-frame batch, {2 * BATCH} clouds of "
+        f"{cfg.capacity.max_points} points")
+
+
+def batch_kernel_entries(torch, reg, cfg, srcs, tgts, dev, path, case,
+                         patch_kernel="moments"):
+    """K1, K2 and the patch kernel (K3 ``"moments"`` or K4
+    ``"cell_query"``) against their plain versions at the shapes that a
+    batch of the pairs (``srcs``, ``tgts``: prepared clouds) gives them
+    under ``cfg``, labelled ``case``. ``path``: the launch path of the
+    entries. Returns (entries, (source batch, target batch, draws))."""
     from bufferx_tpu_torch.geometry.lrf import align_patches
     from bufferx_tpu_torch.kernels import fps as fps_mod
     from bufferx_tpu_torch.kernels import strat_pallas
     from bufferx_tpu_torch.tools import bench_strat
     from bufferx_tpu_torch.tools.bench_strat import time_ms
 
-    cfg = mf_setup["cfg"]
     statics = reg.PipelineStatics.from_config(cfg)
-    edges = mf_setup["edges"][:BATCH]
-    prepared = {i: reg.prepare_cloud(mf_setup["clouds"][i], cfg, seed=i,
-                                     device=dev)
-                for i in sorted({i for e in edges for i in e})}
-    src8 = reg.stack_clouds([prepared[i] for i, _ in edges])
-    tgt8 = reg.stack_clouds([prepared[j] for _, j in edges])
+    src8 = reg.stack_clouds(srcs)
+    tgt8 = reg.stack_clouds(tgts)
     draws8 = reg.make_draws(statics, torch.Generator(device=dev).manual_seed(0),
-                            dev, batch=BATCH)
+                            dev, batch=len(srcs))
     pre = reg._precompute(statics, src8, tgt8, draws8,
                           tuple(range(statics.num_scales)), keep_d2=True)
     torch.cuda.synchronize()
-    n_pts = cfg.capacity.max_points
-    case = f"multi-frame batch, {2 * BATCH} clouds of {n_pts} points"
     entries = []
 
     xyz16 = torch.cat([src8.xyz, tgt8.xyz])
@@ -1502,9 +1542,9 @@ def multiframe_kernel_entries(torch, reg, mf_setup, dev, path):
     r_patch = torch.clamp_min(torch.cat([pre.radii[:, 0], pre.radii[:, 0]]),
                               1e-3).repeat_interleave(nf)
     normed = aligned / r_patch[:, None, None]
-    moments = k3_k4_entries(torch, normed, pmask, statics, case,
-                            (path, path))[0]
-    entries.append(moments)
+    k3, k4 = k3_k4_entries(torch, normed, pmask, statics, case,
+                           (path, path))
+    entries.append(k3 if patch_kernel == "moments" else k4)
     return entries, (src8, tgt8, draws8)
 
 
@@ -1687,6 +1727,562 @@ def run_multiframe(torch, cuda_build, reg, se3, dev):
         f"{measured['dryrun']['loss']}")
     measured["seconds"] = time.perf_counter() - t_phase
     log(f"multi-frame phase: {measured['seconds']:.1f} s")
+    return launches, measured, entries
+
+
+# ---- phase 13: the offline tools ------------------------------------------
+# (a) the synthetic ScanNet++ iPhone scene: IPHONE_FRAMES frames of a room of
+# axis-aligned boxes (camera convention: x right, y down, z ahead; the room
+# is [x0, x1] x [y0, y1] x [z0, z1] metres, the floor at y = 1.2), ray-cast
+# at 192 x 256 with the iPhone intrinsics, depth noise 1 mm from the seed
+IPHONE_FRAMES = 200
+IPHONE_SEED = 0
+IPHONE_K_VIDEO = np.array([[1500.0, 0.0, 960.0], [0.0, 1500.0, 720.0],
+                           [0.0, 0.0, 1.0]])
+IPHONE_ROOM = ((-2.2, 2.2), (-1.6, 1.2), (-1.0, 3.4))
+IPHONE_BOXES = (
+    ((-1.2, 0.4, 1.8), (-0.5, 1.2, 2.5)),
+    ((0.3, -0.2, 2.2), (1.0, 1.2, 2.8)),
+    ((-0.3, 0.7, 1.2), (0.2, 1.2, 1.6)),
+    ((-0.8, -1.0, 2.7), (0.4, -0.6, 3.1)),
+    ((0.9, 0.5, 1.0), (1.4, 1.2, 1.5)),
+    ((-1.6, -0.4, 2.9), (-1.0, 1.2, 3.4)),
+)
+
+
+def iphone_trajectory(frames: int = IPHONE_FRAMES) -> np.ndarray:
+    """[frames, 4, 4] camera-to-world poses: a pan from -20 to +20 degrees
+    of yaw with a slight nod, sliding 0.8 m sideways, so that each
+    fragment's base frame sees the boxes and the back wall 0.5-3.5 m ahead
+    (inside the default TSDF grid) and fragments overlap."""
+    out = np.zeros((frames, 4, 4))
+    for t in range(frames):
+        s = t / max(frames - 1, 1)
+        yaw = np.deg2rad(-20.0 + 40.0 * s)
+        pitch = np.deg2rad(5.0 * np.sin(np.pi * s))
+        cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch)
+        r_yaw = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        r_pitch = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+        out[t, :3, :3] = r_yaw @ r_pitch
+        out[t, :3, 3] = [-0.4 + 0.8 * s, 0.1 * np.sin(2 * np.pi * s),
+                         0.1 * np.sin(2 * np.pi * s)]
+        out[t, 3, 3] = 1.0
+    return out
+
+
+def render_iphone_depth(k_depth: np.ndarray, cam2world: np.ndarray,
+                        rs: np.random.RandomState) -> np.ndarray:
+    """[192, 256] float32 z-depth (metres) of the room and its boxes seen
+    from ``cam2world``: the nearest box entry in front of the camera, else
+    the room's wall where the ray leaves it."""
+    h, w = 192, 256
+    v, u = np.mgrid[0:h, 0:w].reshape(2, -1)
+    rays = np.stack([(u - k_depth[0, 2]) / k_depth[0, 0],
+                     (v - k_depth[1, 2]) / k_depth[1, 1],
+                     np.ones(h * w)])               # z = 1: t is z-depth
+    d = cam2world[:3, :3] @ rays                    # [3, h w]
+    c = cam2world[:3, 3:]
+    with np.errstate(divide="ignore"):
+        inv = 1.0 / d                         # +-inf on an axis-parallel ray
+
+    def slabs(lo, hi):
+        t0 = (np.asarray(lo)[:, None] - c) * inv
+        t1 = (np.asarray(hi)[:, None] - c) * inv
+        near, far = np.minimum(t0, t1), np.maximum(t0, t1)
+        return (np.maximum(np.maximum(near[0], near[1]), near[2]),
+                np.minimum(np.minimum(far[0], far[1]), far[2]))
+
+    _, depth = slabs(*zip(*IPHONE_ROOM))
+    for bmin, bmax in IPHONE_BOXES:
+        t_in, t_out = slabs(bmin, bmax)
+        hit = (t_in <= t_out) & (t_in > 0.05) & (t_in < depth)
+        depth = np.where(hit, t_in, depth)
+    depth = depth.reshape(h, w)
+    depth = depth + rs.randn(h, w) * 0.001
+    return np.where(np.isfinite(depth) & (depth > 0.1), depth,
+                    0.0).astype(np.float32)
+
+
+def write_iphone_scene(scene_root: str, frames: int = IPHONE_FRAMES,
+                       seed: int = IPHONE_SEED) -> str:
+    """A raw ScanNet++ iPhone scene at ``<scene_root>/iphone/``: ``depth.bin``
+    (one raw-deflate stream of float32 metres [frames, 192, 256]) and
+    ``pose_intrinsic_imu.json`` (``aligned_pose``, video ``intrinsic``).
+    Returns ``scene_root``."""
+    import zlib
+
+    rs = np.random.RandomState(seed)
+    poses = iphone_trajectory(frames)
+    k_depth = IPHONE_K_VIDEO / 7.5          # INTRINSIC_SCALE: 1920 / 256
+    iphone = os.path.join(scene_root, "iphone")
+    os.makedirs(iphone, exist_ok=True)
+    comp = zlib.compressobj(level=1, wbits=-zlib.MAX_WBITS)
+    meta = {}
+    with open(os.path.join(iphone, "depth.bin"), "wb") as f:
+        for t in range(frames):
+            f.write(comp.compress(
+                render_iphone_depth(k_depth, poses[t], rs).tobytes()))
+            meta[f"frame_{t:06d}"] = dict(aligned_pose=poses[t].tolist(),
+                                          intrinsic=IPHONE_K_VIDEO.tolist())
+        f.write(comp.flush())
+    with open(os.path.join(iphone, "pose_intrinsic_imu.json"), "w") as f:
+        json.dump(meta, f)
+    return scene_root
+
+
+def gt_log_inverted(iphone_dir: str, out_root: str) -> str:
+    """A ScanNet++ iPhone layout at ``<out_root>/scene0/iphone/`` whose
+    ``gt.log`` holds the inverse of each pose in ``iphone_dir/gt.log`` (its
+    ``tsdf/`` a link to the original). ``generate_pairs`` writes inv(pose_j)
+    pose_i, which already maps fragment i into fragment j, and the fragment
+    loader inverts the log's pose once more: a fault of both packages
+    (ROADMAP.md, Queue 3). Scored against the inverted log, a registration
+    is held against the fragments' true relative pose. Returns out_root."""
+    from bufferx_tpu_torch.data.base import (
+        read_trajectory_log,
+        write_trajectory_log,
+    )
+
+    iphone = os.path.join(out_root, "scene0", "iphone")
+    os.makedirs(iphone, exist_ok=True)
+    pairs, poses = read_trajectory_log(os.path.join(iphone_dir, "gt.log"))
+    write_trajectory_log(os.path.join(iphone, "gt.log"), pairs,
+                         [np.linalg.inv(p) for p in poses])
+    os.symlink(os.path.join(iphone_dir, "tsdf"),
+               os.path.join(iphone, "tsdf"))
+    return out_root
+
+
+# The JAX package's output on this scene, on the CPU (``prepare_scene`` with
+# the defaults and keep_prob 1.0, then ``scripts/evaluate.py``):
+#   python - <<'PY'
+#   import chip_smoke
+#   from bufferx_tpu.tools.scannetpp import prepare_scene
+#   chip_smoke.write_iphone_scene("D/scene0")
+#   print(prepare_scene("D/scene0", pair_kw=dict(keep_prob=1.0)))
+#   chip_smoke.gt_log_inverted("D/scene0/iphone", "DI")
+#   PY
+#   python scripts/evaluate.py --dataset Scannetpp_iphone --cpu \
+#       --checkpoint-dir snapshot/hard_moments_r4ft2 --root D   (and DI)
+# 4 fragments of 50 frames, 4 of the 6 candidate pairs accepted, the points
+# of each fragment and the first 16 hex digits of each PLY's sha256; at the
+# preset's full width 0 of 4 successes on the log as written (the pair's
+# pose is scored against its inverse: RRE 19-41 degrees, twice each pair's
+# rotation) and 4 of 4 on the inverted log. Phase 13 must match the counts
+# within IPHONE_POINT_TOL (relative) and the pairs exactly, and reach each
+# success count less 1.
+JAX_IPHONE = dict(
+    fragments=4, pairs=4, gt_pairs=[[0, 1], [1, 2], [1, 3], [2, 3]],
+    points=[427994, 440485, 442378, 355049],
+    ply_sha256=["6cd3ca69a763452a", "02e9724ae72659e5", "2492921c37b66177",
+                "233da940e8eb4bd2"],
+    gt_log_sha256="f28534c9672471ff",
+    successes={"as_written": 0, "inverted": 4})
+IPHONE_POINT_TOL = 1e-4
+# voxels of the card's volume allowed to differ from the CPU's after the
+# first 2 frames at the full grid (the operations round alike on both)
+IPHONE_CARD_CPU_FLIPS = 0
+IPHONE_TIMED_FRAMES = 50
+IPHONE_GRID = dict(origin=(-1.5, -1.5, 0.5), dims=(500, 500, 500),
+                   voxel=0.006)
+# (d): tools/bench_scaling.py's batch run at world size 1 (4 pairs, every
+# scale, the sampled path with the cuDNN backbone)
+BENCH_LAUNCHES = {"fps": 1, "strat": 1, "moments": 0, "cell_query": 3,
+                  "conv_stack": 0}
+
+
+def reference_state_dict(torch, snapshot_dir: str) -> dict:
+    """A staged snapshot (``{Desc,Pose}/best.msgpack``, sampled descriptor)
+    as the state dict of the reference's whole ``BufferX`` module: the
+    inverse of ``tools/torch_import.py``'s map, with ``Desc.`` and
+    ``Pose.`` keys, BatchNorm running statistics and
+    ``num_batches_tracked``."""
+    from bufferx_tpu_torch.tools.weights import msgpack_restore
+
+    sd = {}
+
+    def cbr(p, st, conv_key, bn_key, affine):
+        w = p["Conv_0"]["kernel"]
+        perm = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[w.ndim]
+        sd[conv_key + ".weight"] = torch.from_numpy(
+            np.array(np.transpose(w, perm), order="C"))
+        sd[conv_key + ".bias"] = torch.from_numpy(p["Conv_0"]["bias"].copy())
+        if bn_key is None:
+            return
+        if affine:
+            sd[bn_key + ".weight"] = torch.from_numpy(
+                p["BatchNorm_0"]["scale"].copy())
+            sd[bn_key + ".bias"] = torch.from_numpy(
+                p["BatchNorm_0"]["bias"].copy())
+        sd[bn_key + ".running_mean"] = torch.from_numpy(
+            st["BatchNorm_0"]["mean"].copy())
+        sd[bn_key + ".running_var"] = torch.from_numpy(
+            st["BatchNorm_0"]["var"].copy())
+        sd[bn_key + ".num_batches_tracked"] = torch.tensor(1000)
+
+    trees = {}
+    for stage in ("Desc", "Pose"):
+        with open(os.path.join(snapshot_dir, stage, "best.msgpack"), "rb") as f:
+            trees[stage] = msgpack_restore(f.read())
+    p, st = trees["Desc"]["params"], trees["Desc"]["batch_stats"]
+    cbr(p["ConvBNRelu_0"], st["ConvBNRelu_0"], "Desc.pnt_layer.0",
+        "Desc.pnt_layer.1", True)
+    op = 0
+    for i in range(8):
+        name = f"ConvBNRelu_{i}"
+        cbr(p["CylindricalConvNet_0"][name],
+            st["CylindricalConvNet_0"].get(name), f"Desc.conv_net.ops.{op}",
+            f"Desc.conv_net.ops.{op + 1}" if i < 7 else None, False)
+        op += 3 if i < 7 else 1
+    for name, conv, bn in (("ConvBNRelu_1", "0", "1"),
+                           ("ConvBNRelu_2", "3", "4")):
+        cbr(p[name], st[name], f"Desc.pool_layer.{conv}",
+            f"Desc.pool_layer.{bn}", True)
+    p, st = trees["Pose"]["params"], trees["Pose"]["batch_stats"]
+    op = 0
+    for i in range(10):
+        name = f"ConvBNRelu_{i}"
+        cbr(p[name], st.get(name), f"Pose.conv.ops.{op}",
+            f"Pose.conv.ops.{op + 1}" if i < 9 else None, False)
+        op += 3 if i < 9 else 1
+    return sd
+
+
+def write_reference_snapshot(torch, snapshot_dir: str, out_dir: str) -> str:
+    """``<out_dir>/{Desc,Pose}/best.pth``, each the whole reference-layout
+    state dict of ``snapshot_dir`` (:func:`reference_state_dict`), as the
+    reference ships its checkpoints. Returns out_dir."""
+    sd = reference_state_dict(torch, snapshot_dir)
+    for stage in ("Desc", "Pose"):
+        os.makedirs(os.path.join(out_dir, stage), exist_ok=True)
+        torch.save(sd, os.path.join(out_dir, stage, "best.pth"))
+    return out_dir
+
+
+def _sha16(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()[:16]
+
+
+def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
+                      poses_4b):
+    """Phase 13: the offline tools at full width (see the module notes).
+    Returns (launches by run, what it measured, kernel entries)."""
+    import shutil
+    import tempfile
+
+    from bufferx_tpu_torch.config import make_cfg
+    from bufferx_tpu_torch.data.base import read_trajectory_log
+    from bufferx_tpu_torch.data.datasets import get_dataset
+    from bufferx_tpu_torch.data.io import read_points
+    from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
+    from bufferx_tpu_torch.tools import bench_scaling
+    from bufferx_tpu_torch.tools import evaluate as tev
+    from bufferx_tpu_torch.tools import import_reference_checkpoint as imp
+    from bufferx_tpu_torch.tools import scannetpp, tsdf
+    from bufferx_tpu_torch.tools.weights import (
+        load_snapshot,
+        load_snapshot_config,
+        msgpack_dumps,
+        msgpack_restore,
+    )
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="bufferx_offline_")
+    out_dir = os.path.join(HERE, "chiprun_out", "offline")
+    launches, measured, entries = {}, {}, []
+    try:
+        # ---- (a) ScanNet++ iPhone preprocessing at the reference's sizes
+        iphone_root = os.path.join(root, "iphone")
+        scene_root = os.path.join(iphone_root, "scene0")
+        t0 = time.perf_counter()
+        write_iphone_scene(scene_root)
+        scene_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = scannetpp.prepare_scene(scene_root,
+                                        pair_kw=dict(keep_prob=1.0),
+                                        device=dev)
+        prep_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        layout = scannetpp.SceneLayout(scene_root)
+        plys = [os.path.join(layout.tsdf_dir, f"cloud_bin_{i}.ply")
+                for i in range(stats["fragments"])]
+        points = [len(read_points(f)) for f in plys]
+        gt_pairs, _ = read_trajectory_log(os.path.join(layout.iphone_dir,
+                                                       "gt.log"))
+        gt_pairs = [[int(i), int(j)] for i, j, _n in gt_pairs]
+        hashes = [_sha16(f) for f in plys]
+        gt_hash = _sha16(os.path.join(layout.iphone_dir, "gt.log"))
+        frag_s = stats["seconds"]["fragments"] / max(stats["fragments"], 1)
+        log(f"offline (a): scene of {IPHONE_FRAMES} frames written in "
+            f"{scene_s:.1f} s; prepare_scene {prep_s:.1f} s (extract "
+            f"{stats['seconds']['extract']:.1f} s, fragments "
+            f"{stats['seconds']['fragments']:.1f} s = {frag_s:.2f} s a "
+            f"fragment with extraction and the PLY write, pairs "
+            f"{stats['seconds']['pairs']:.1f} s); {stats['fragments']} "
+            f"fragments of {points} points (JAX package: "
+            f"{JAX_IPHONE['points']}), pairs {gt_pairs} (JAX: "
+            f"{JAX_IPHONE['gt_pairs']}); peak {peak / 2**30:.2f} GiB "
+            f"allocated ({(peak - base_mem) / 2**30:.2f} GiB above the "
+            f"{base_mem / 2**30:.2f} GiB held before); PLY bytes equal to "
+            f"JAX's: {hashes == JAX_IPHONE['ply_sha256']}, gt.log: "
+            f"{gt_hash == JAX_IPHONE['gt_log_sha256']}")
+        if stats["depth_frames"] != IPHONE_FRAMES or \
+                stats["fragments"] != JAX_IPHONE["fragments"]:
+            raise AssertionError(f"offline (a): {stats}")
+        if gt_pairs != JAX_IPHONE["gt_pairs"] or \
+                stats["pairs"] != JAX_IPHONE["pairs"]:
+            raise AssertionError(f"offline (a): accepted pairs {gt_pairs}, "
+                                 f"the JAX package's {JAX_IPHONE['gt_pairs']}")
+        for got_n, want_n in zip(points, JAX_IPHONE["points"]):
+            if abs(got_n - want_n) > IPHONE_POINT_TOL * want_n:
+                raise AssertionError(f"offline (a): fragment points "
+                                     f"{points}, the JAX package's "
+                                     f"{JAX_IPHONE['points']}")
+
+        # the card against the CPU on the first 2 frames at the full grid
+        def frame(t):
+            depth = np.load(os.path.join(
+                layout.depth_dir, f"frame_{t:06d}.depth.npy")).astype(
+                    np.float32) / 1000.0
+            pose = np.loadtxt(os.path.join(layout.pose_dir,
+                                           f"frame_{t:06d}.pose.txt"))
+            return depth, pose
+
+        k = np.loadtxt(os.path.join(layout.intrinsic_dir,
+                                    "frame_000000.intrinsic.txt"))
+        frames = [frame(t) for t in range(IPHONE_TIMED_FRAMES)]
+        base_inv = np.linalg.inv(frames[0][1])
+        g = IPHONE_GRID
+        vols = {}
+        for d in (dev, torch.device("cpu")):
+            vol = tsdf.make_volume(g["origin"], g["dims"], g["voxel"],
+                                   device=d)
+            for depth, pose in frames[:2]:
+                tsdf.integrate_frame(vol, k, base_inv @ pose, depth)
+            vols[d.type] = vol
+        flips = int((vols["cuda"].tsdf.cpu() != vols["cpu"].tsdf).sum()
+                    + (vols["cuda"].weight.cpu() != vols["cpu"].weight).sum())
+        log(f"offline (a): card vs CPU after 2 frames at "
+            f"{g['dims']} voxels: {flips} values differ (tsdf and weight)")
+        if flips > IPHONE_CARD_CPU_FLIPS:
+            raise AssertionError(f"offline (a): the card's volume differs "
+                                 f"from the CPU's in {flips} values")
+        vol = vols["cuda"]
+        del vols
+
+        # ms a frame with CUDA events, the first fragment's frames
+        tsdf.reset_volume(vol)
+        ms = []
+        for depth, pose in frames:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tsdf.integrate_frame(vol, k, base_inv @ pose, depth)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        n_vox = int(np.prod(g["dims"]))
+        frame_bound = bound_ms(4 * 4.0 * n_vox, 0.0)
+        del vol
+        measured["iphone"] = dict(
+            frames=stats["depth_frames"], fragments=stats["fragments"],
+            points=points, jax_points=JAX_IPHONE["points"],
+            pairs=gt_pairs, jax_pairs=JAX_IPHONE["gt_pairs"],
+            ply_bytes_equal_jax=hashes == JAX_IPHONE["ply_sha256"],
+            gt_log_bytes_equal_jax=gt_hash == JAX_IPHONE["gt_log_sha256"],
+            card_cpu_values_differing=flips,
+            integrate_ms_median=float(np.median(ms)),
+            integrate_ms_mean=float(np.mean(ms)),
+            integrate_ms_min=float(np.min(ms)),
+            integrate_bound_ms=frame_bound[0],
+            integrate_bound_by=frame_bound[1],
+            seconds_a_fragment=frag_s, stage_seconds=stats["seconds"],
+            prepare_scene_seconds=prep_s, scene_write_seconds=scene_s,
+            peak_allocated_gib=peak / 2**30,
+            peak_above_before_gib=(peak - base_mem) / 2**30)
+        log(f"offline (a): integrate_frame {np.median(ms):.3f} ms a frame "
+            f"(median of {len(ms)}, min {np.min(ms):.3f}, mean "
+            f"{np.mean(ms):.3f}) against a bound of {frame_bound[0]:.3f} ms "
+            f"({frame_bound[1]}: both volumes read and written)")
+
+        # ---- (b) the fragments through tools/evaluate.py ----------------
+        inv_root = gt_log_inverted(layout.iphone_dir,
+                                   os.path.join(root, "iphone_inverted"))
+        n = stats["pairs"]
+        cli = {}
+        for label, data_root in (("as_written", iphone_root),
+                                 ("inverted", inv_root)):
+            cuda_build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = tev.run(["--dataset", "Scannetpp_iphone", "--root",
+                               data_root, "--checkpoint-dir", SNAPSHOT,
+                               "--out-dir", out_dir, "--experiment-id",
+                               f"iphone_{label}"], log=lambda *_: None)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = {kk: kr.launches for kk, kr in cuda_build.KERNELS.items()}
+            launches[f"iphone_{label}"] = got
+            want = dict({kk: 0 for kk in got}, fps=n, strat=n, moments=3 * n)
+            rows = summary["rows"]
+            successes = sum(r["success"] for r in rows)
+            jax_count = JAX_IPHONE["successes"][label]
+            # the harness's means leave out its first 5 pairs (the
+            # reference's warm-up): the rows' own times, the first pair's
+            # aside
+            cli[label] = dict(
+                successes=successes, jax_successes=jax_count,
+                pairs=summary["num_pairs"],
+                rte=[float(r["rte"]) for r in rows],
+                rre=[float(r["rre"]) for r in rows],
+                model_ms_a_pair=float(np.median(
+                    [r["model_time"] for r in rows[1:]])) * 1e3,
+                data_ms_a_pair=float(np.median(
+                    [r["data_time"] for r in rows[1:]])) * 1e3,
+                seconds=seconds, launches=got)
+            log(f"offline (b), tools/evaluate.py Scannetpp_iphone, gt.log "
+                f"{label.replace('_', ' ')}: {successes}/"
+                f"{summary['num_pairs']} successes (JAX package: "
+                f"{jax_count}), RRE {[round(x, 2) for x in cli[label]['rre']]}"
+                f" deg, model {cli[label]['model_ms_a_pair']:.1f} ms a pair, "
+                f"data stall {cli[label]['data_ms_a_pair']:.1f} ms a pair, "
+                f"{seconds:.1f} s in all, launches {got}")
+            if got != want:
+                raise AssertionError(f"offline (b) {label}: launches {got}, "
+                                     f"expected {want}")
+            if summary["num_pairs"] != n or successes < jax_count - 1:
+                raise AssertionError(
+                    f"offline (b) {label}: {successes} successes of "
+                    f"{summary['num_pairs']} < the JAX package's "
+                    f"{jax_count} - 1")
+        measured["iphone_evaluate"] = cli
+        # K1-K3 at the shapes the evaluation gives them: one pair of
+        # fragments, loaded and capped as tools/evaluate.py loads them
+        cfg_i = make_cfg("Scannetpp_iphone", inv_root).override(
+            patch=load_snapshot_config(SNAPSHOT))
+        sample = get_dataset(cfg_i)[0]
+        pair_i = [reg.prepare_cloud(sample[key], cfg_i, seed=s, device=dev)
+                  for s, key in enumerate(("src_points", "tgt_points"))]
+        e_iphone, _ = batch_kernel_entries(
+            torch, reg, cfg_i, pair_i[:1], pair_i[1:], dev, "iphone_inverted",
+            f"ScanNet++ iPhone fragments, 1 pair (2 clouds of "
+            f"{cfg_i.capacity.max_points} points)")
+        entries += e_iphone
+
+        # ---- (c) the reference weights through the importer -------------
+        ref_dir = write_reference_snapshot(torch, SNAPSHOT_SAMPLED,
+                                           os.path.join(root, "ref_hard"))
+        imp_dir = os.path.join(root, "imported_hard")
+        t0 = time.perf_counter()
+        if imp.main(["--src", ref_dir, "--out", imp_dir]) != 0:
+            raise AssertionError("offline (c): the importer refused "
+                                 "snapshot/hard")
+        import_s = time.perf_counter() - t0
+        byte_equal, sorted_equal = [], []
+        for stage in ("Desc", "Pose"):
+            with open(os.path.join(imp_dir, stage, "best.msgpack"), "rb") as f:
+                got_b = f.read()
+            with open(os.path.join(SNAPSHOT_SAMPLED, stage, "best.msgpack"),
+                      "rb") as f:
+                want_b = f.read()
+            got_t, want_t = msgpack_restore(got_b), msgpack_restore(want_b)
+
+            def leaves(tree, prefix=""):
+                for kk, v in tree.items():
+                    if isinstance(v, dict):
+                        yield from leaves(v, prefix + "/" + kk)
+                    else:
+                        yield prefix + "/" + kk, v
+
+            got_l, want_l = dict(leaves(got_t)), dict(leaves(want_t))
+            if sorted(got_l) != sorted(want_l) or any(
+                    got_l[kk].dtype != want_l[kk].dtype
+                    or not np.array_equal(got_l[kk], want_l[kk])
+                    for kk in want_l):
+                raise AssertionError(f"offline (c): imported {stage} arrays "
+                                     "differ from snapshot/hard's")
+
+            def sort(tree):
+                return {kk: sort(tree[kk]) for kk in sorted(tree)} \
+                    if isinstance(tree, dict) else tree
+
+            byte_equal.append(got_b == want_b)
+            sorted_equal.append(msgpack_dumps(sort(got_t)) == want_b)
+        if not all(sorted_equal):
+            raise AssertionError("offline (c): the imported trees in pytree "
+                                 "key order are not snapshot/hard's bytes")
+        log(f"offline (c): snapshot/hard as reference .pth files imported "
+            f"in {import_s:.2f} s: every array equal; files byte-equal "
+            f"{byte_equal} (the importer writes the reference's module "
+            f"order, as the JAX importer does), byte-equal in pytree key "
+            f"order {sorted_equal}")
+        statics_s = reg.PipelineStatics.from_config(cfg_s)
+        models_imp = reg.build_models(statics_s, load_snapshot(imp_dir), dev)
+        poses_imp = []
+        launches["imported"] = run_path(torch, reg, se3, cuda_build,
+                                        "sampled", cfg_s, models_imp, pairs,
+                                        poses=poses_imp)
+        equal = all(torch.equal(a, b) for a, b in zip(poses_imp, poses_4b))
+        d_rte = max(float(se3.compute_rte(a, b))
+                    for a, b in zip(poses_imp, poses_4b))
+        d_rre = max(float(se3.compute_rre(a, b))
+                    for a, b in zip(poses_imp, poses_4b))
+        log(f"offline (c): imported snapshot/hard on phase 4b's "
+            f"{len(pairs)} pairs: poses equal to phase 4b's: {equal} (at "
+            f"most {d_rte:.2e} m, {d_rre:.2e} deg apart)")
+        if len(poses_imp) != len(poses_4b) or not equal and (
+                d_rte > 1e-5 or d_rre > 1e-4):
+            raise AssertionError("offline (c): the imported weights register "
+                                 "phase 4b's pairs otherwise")
+        measured["import"] = dict(
+            seconds=import_s, arrays_equal=True, bytes_equal=byte_equal,
+            bytes_equal_in_pytree_order=sorted_equal, poses_equal=equal,
+            max_rte_m=d_rte, max_rre_deg=d_rre)
+
+        # ---- (d) tools/bench_scaling.py at world size 1 ----------------
+        t0 = time.perf_counter()
+        bench = bench_scaling.run(["--checkpoint-dir",
+                                   os.path.join(HERE, "snapshot",
+                                                "synthetic")])
+        bench_s = time.perf_counter() - t0
+        r = bench[0]
+        launches["bench_scaling"] = r["launches"]
+        log(f"offline (d): tools/bench_scaling.py at world size 1: "
+            f"{r['line']} ({r['pairs']} pairs in {r['seconds'] * 1e3:.1f} ms "
+            f"a run), {bench_s:.1f} s in all, launches a run "
+            f"{r['launches']}")
+        if r["line"]["mesh"] != 1 or r["launches"] != BENCH_LAUNCHES:
+            raise AssertionError(f"offline (d): {r['line']}, launches "
+                                 f"{r['launches']}, expected "
+                                 f"{BENCH_LAUNCHES} at world size 1")
+        if not bool(torch.isfinite(r["pose"]).all()):
+            raise AssertionError("offline (d): a pose is not finite")
+        measured["bench_scaling"] = dict(
+            line=r["line"], pairs=r["pairs"], seconds_a_run=r["seconds"],
+            seconds=bench_s, launches=r["launches"])
+        # its batch: pair i from RandomState(i), 24000 points, seed i
+        cfg_b = bench_scaling.bench_config(False)
+        b_src, b_tgt = [], []
+        for i in range(r["pairs"]):
+            s_i, t_i, _ = synthetic_pair_full_overlap(
+                np.random.RandomState(i), num_points=24000)
+            b_src.append(reg.prepare_cloud(s_i, cfg_b, seed=i, device=dev))
+            b_tgt.append(reg.prepare_cloud(t_i, cfg_b, seed=i, device=dev))
+        e_bench, _ = batch_kernel_entries(
+            torch, reg, cfg_b, b_src, b_tgt, dev, "bench_scaling",
+            f"bench_scaling batch, {2 * r['pairs']} clouds of 24000 points",
+            patch_kernel="cell_query")
+        entries += e_bench
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    measured["seconds"] = time.perf_counter() - t_phase
+    log(f"offline tools phase: {measured['seconds']:.1f} s")
     return launches, measured, entries
 
 
@@ -2137,11 +2733,12 @@ def main() -> int:
             f"({kr['bound'][1]})")
 
     # ---- 4. the main path; 4b. the sampled path ---------------------------
+    poses_4b = []
     launches = {
         "moments": run_path(torch, reg, se3, cuda_build, "moments", cfg,
                             models, pairs),
         "sampled": run_path(torch, reg, se3, cuda_build, "sampled", cfg_s,
-                            models_s, pairs),
+                            models_s, pairs, poses=poses_4b),
     }
 
     # ---- 6. batched two-phase serving at full width, moments path ----------
@@ -2344,6 +2941,12 @@ def main() -> int:
     launches.update(launches_mf)
     kernels.extend(mf_kernels)
 
+    # ---- 13. the offline tools ---------------------------------------------
+    launches_off, offline, off_kernels = run_offline_tools(
+        torch, cuda_build, reg, se3, dev, cfg_s, pairs, poses_4b)
+    launches.update(launches_off)
+    kernels.extend(off_kernels)
+
     # ---- result lines -----------------------------------------------------
     out = []
     for kr in kernels:
@@ -2367,6 +2970,7 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"dataset": dataset}), flush=True)
     print(json.dumps({"multiframe": multiframe}), flush=True)
+    print(json.dumps({"offline": offline}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

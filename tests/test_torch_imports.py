@@ -121,3 +121,40 @@ def test_multiframe_and_distributed_stand_alone():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of the JAX package has one of the same path in the port
+    (the JAX ``config`` package is the port's ``config.py``)."""
+    jax_root = os.path.join(ROOT, "bufferx_tpu")
+    missing = []
+    for d, _dirs, files in os.walk(jax_root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), jax_root)
+            if rel == os.path.join("config", "__init__.py"):
+                rel = "config.py"
+            if not os.path.exists(os.path.join(ROOT, "bufferx_tpu_torch",
+                                               rel)):
+                missing.append(rel)
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("module", [
+    "bufferx_tpu_torch.utils.vis", "bufferx_tpu_torch.tools.tsdf",
+    "bufferx_tpu_torch.tools.scannetpp", "bufferx_tpu_torch.tools.pairgen",
+    "bufferx_tpu_torch.tools.torch_import",
+    "bufferx_tpu_torch.tools.import_reference_checkpoint",
+    "bufferx_tpu_torch.native", "bufferx_tpu_torch.tools.bench_scaling",
+    "bufferx_tpu_torch.tools.eval_all",
+])
+def test_offline_tools_import_alone(module):
+    """Each offline tool imports in a fresh interpreter without loading JAX,
+    flax or the JAX package."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(FORBIDDEN) + ")\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
