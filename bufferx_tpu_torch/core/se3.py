@@ -6,13 +6,15 @@ function broadcasts over leading axes.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from bufferx_tpu_torch.device import constant
 
 __all__ = ["transform", "decompose", "integrate", "concatenate", "inverse",
            "compute_rte", "compute_rre", "rotation_z",
-           "axis_angle_to_rotation"]
+           "axis_angle_to_rotation", "random_rotation"]
 
 
 def transform(pts: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
@@ -104,3 +106,26 @@ def axis_angle_to_rotation(axis_angle: torch.Tensor) -> torch.Tensor:
     )
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
     return eye + A * K + B * (K @ K)
+
+
+def random_rotation(u: torch.Tensor, num_axis: int = 3,
+                    magnitude: float = 1.0) -> torch.Tensor:
+    """Augmentation rotation (reference ``utils/SE3.py:6-43``) from three
+    uniform draws ``u`` [3] in [0, 1): the angles are ``u * 2 pi *
+    magnitude``. ``num_axis=0`` is the identity (``u`` unused),
+    ``num_axis=1`` rotates about z by angle 2 (outdoor augmentation), any
+    other value composes ``Rx @ Ry @ Rz`` (indoor). [3, 3] on ``u``'s
+    device, in its dtype."""
+    if num_axis == 0:
+        return torch.eye(3, dtype=u.dtype, device=u.device)
+    angles = u * 2.0 * math.pi * magnitude
+    rz = rotation_z(angles[2])
+    if num_axis == 1:
+        return rz
+    c, s = torch.cos(angles[:2]), torch.sin(angles[:2])
+    z, o = torch.zeros_like(c[0]), torch.ones_like(c[0])
+    rx = torch.stack([torch.stack([o, z, z]), torch.stack([z, c[0], -s[0]]),
+                      torch.stack([z, s[0], c[0]])])
+    ry = torch.stack([torch.stack([c[1], z, s[1]]), torch.stack([z, o, z]),
+                      torch.stack([-s[1], z, c[1]])])
+    return rx @ ry @ rz

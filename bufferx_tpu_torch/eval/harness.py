@@ -296,8 +296,8 @@ def evaluate_pairs_batched(
     is as short as it is (nothing is padded), and every batch is timed: the
     first batch runs once untimed, as a warm-up whose result is dropped,
     before the timed run. The summary adds ``pairs_per_second`` over all
-    pairs. A batch takes one ``is_aligned_to_global_z``: a batch whose
-    samples differ in it raises ``ValueError``. ``draws``: one
+    pairs. Each pair takes its sample's ``is_aligned_to_global_z`` (a [B]
+    bool tensor on the device, made with the batch). ``draws``: one
     :class:`Draws` with the batch's size as its leading dimension a batch;
     otherwise they come from ``generator`` (default: a CPU generator seeded
     ``cfg.data.manual_seed``).
@@ -319,16 +319,13 @@ def evaluate_pairs_batched(
     def build_batch(b):
         idx = range(b * batch_size, min((b + 1) * batch_size, n))
         chunk = [samples[i] for i in idx]
-        aligned = {_aligned(cfg, s) for s in chunk}
-        if len(aligned) > 1:
-            raise ValueError(
-                f"batch {b} mixes is_aligned_to_global_z values; a batch "
-                "takes one")
+        aligned = torch.tensor([_aligned(cfg, s) for s in chunk],
+                               dtype=torch.bool, device=dev)
         srcs = [prepare_cloud(samples[i]["src_points"], cfg, seed=2 * i,
                               device=dev) for i in idx]
         tgts = [prepare_cloud(samples[i]["tgt_points"], cfg, seed=2 * i + 1,
                               device=dev) for i in idx]
-        return chunk, srcs, tgts, aligned.pop()
+        return chunk, srcs, tgts, aligned
 
     if prefetch_workers > 0:
         batch_stream = prefetch_indexed(

@@ -26,16 +26,24 @@ def compute_z_axis(delta: torch.Tensor, ref_point: torch.Tensor) -> torch.Tensor
 
 
 def align_patches(delta: torch.Tensor, kpts: torch.Tensor,
-                  is_aligned_to_global_z: bool):
+                  is_aligned_to_global_z: bool | torch.Tensor):
     """Rotate patches into their LRF, or keep the global frame when the
     clouds are gravity-aligned. Returns (aligned_delta [K, P, 3],
-    rand_axis [K, 3], R [K, 3, 3]) with ``aligned = delta @ R``."""
+    rand_axis [K, 3], R [K, 3, 3]) with ``aligned = delta @ R``.
+
+    ``is_aligned_to_global_z``: a Python bool takes one branch for every
+    patch; a [K] bool tensor computes both and selects per patch with
+    ``torch.where``, as the JAX function does under ``vmap`` (no host
+    read)."""
     k = delta.shape[0]
-    if is_aligned_to_global_z:
-        R = torch.eye(3, dtype=delta.dtype, device=delta.device).expand(k, 3, 3)
-        rand = constant((1.0, 0.0, 0.0), delta.dtype,
-                        delta.device).expand(k, 3)
-        return delta, rand, R
+    per_patch = isinstance(is_aligned_to_global_z, torch.Tensor)
+    if per_patch or is_aligned_to_global_z:
+        R_id = torch.eye(3, dtype=delta.dtype,
+                         device=delta.device).expand(k, 3, 3)
+        rand_id = constant((1.0, 0.0, 0.0), delta.dtype,
+                           delta.device).expand(k, 3)
+        if not per_patch:
+            return delta, rand_id, R_id
     z_hat = constant((0.0, 0.0, 1.0), delta.dtype,
                      delta.device).expand(k, 3)
     z = compute_z_axis(delta, kpts)
@@ -44,4 +52,8 @@ def align_patches(delta: torch.Tensor, kpts: torch.Tensor,
     rand = torch.linalg.cross(z, z_hat)
     rand = rand / torch.clamp_min(torch.linalg.norm(rand, dim=-1, keepdim=True),
                                   1e-12)
-    return aligned, rand, R
+    if not per_patch:
+        return aligned, rand, R
+    flag = is_aligned_to_global_z.reshape(k, 1, 1)
+    return (torch.where(flag, delta, aligned),
+            torch.where(flag[:, 0], rand_id, rand), torch.where(flag, R_id, R))

@@ -1,7 +1,6 @@
-"""Density-aware descriptor radius estimation from a distance matrix.
+"""Density-aware descriptor radius estimation.
 
-Counterpart of :func:`bufferx_tpu.kernels.radius.density_aware_radius_from_d2`
-with the same semantics: targets are percentages of the FULL pair count
+Counterpart of :mod:`bufferx_tpu.kernels.radius` with the same semantics: targets are percentages of the FULL pair count
 while only pairs within ``max_r`` are counted; 12 bisection rounds over bf16
 distances on the contiguous ``1/subsample`` column prefix (points arrive
 shuffled, so a prefix is a uniform subset); the result is rounded to
@@ -13,8 +12,9 @@ from __future__ import annotations
 import torch
 
 from bufferx_tpu_torch.device import constant
+from bufferx_tpu_torch.kernels.neighbors import sqdist
 
-__all__ = ["density_aware_radius_from_d2"]
+__all__ = ["density_aware_radius", "density_aware_radius_from_d2"]
 
 
 def _bisect_quantile(d2, weights, target_counts, min_r: float, max_r: float,
@@ -35,6 +35,23 @@ def _bisect_quantile(d2, weights, target_counts, min_r: float, max_r: float,
         low = torch.where(counts < target_counts, mid, low)
         high = torch.where(counts >= target_counts, mid, high)
     return 0.5 * (low + high)
+
+
+def density_aware_radius(pts: torch.Tensor, pts_mask: torch.Tensor,
+                         kpts: torch.Tensor, kpts_mask: torch.Tensor,
+                         thresholds, max_r: float = 5.0) -> torch.Tensor:
+    """Per-scale radii from the points themselves: pts [N, 3] (the denser
+    cloud), kpts [K, 3] probe keypoints, their masks [N] and [K] ->
+    [len(thresholds)] f32; or a batch, [B, N, 3] and [B, K, 3] -> [B, T].
+    The distances are :func:`~bufferx_tpu_torch.kernels.neighbors.sqdist`'s
+    float32 expansion, as the JAX function's are."""
+    single = pts.ndim == 2
+    if single:
+        pts, pts_mask = pts[None], pts_mask[None]
+        kpts, kpts_mask = kpts[None], kpts_mask[None]
+    r = density_aware_radius_from_d2(sqdist(kpts, pts), pts_mask, kpts_mask,
+                                     thresholds, max_r)
+    return r[0] if single else r
 
 
 def density_aware_radius_from_d2(d2: torch.Tensor, pts_mask: torch.Tensor,

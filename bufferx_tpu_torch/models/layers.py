@@ -43,8 +43,8 @@ from bufferx_tpu_torch.kernels.conv_pallas import (
 )
 
 __all__ = ["pad_cyl_2d", "pad_cyl_3d", "ConvBNRelu", "CylindricalConvNet",
-           "FusedCylindricalConvNet", "at_least_f32", "batch_norm",
-           "batch_moments", "running_stats"]
+           "FusedCylindricalConvNet", "CylindricalUNet", "at_least_f32",
+           "batch_norm", "batch_moments", "running_stats"]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -263,3 +263,52 @@ class FusedCylindricalConvNet(CylindricalConvNet):
         out = cyl_conv_stack(x.permute(0, 2, 3, 4, 1), self.folded_w,
                              self.folded_b, self.packed_w)  # [K, 7, 20, 32]
         return out.permute(0, 3, 1, 2)
+
+
+class CylindricalUNet(nn.Module):
+    """U-Net form of the backbone (reference ``Cylindrical_UNet``,
+    ``models/patchnet.py:86-149``; counterpart of
+    :class:`bufferx_tpu.models.layers.CylindricalUNet`, which no pipeline
+    uses): a 3x3x3 stem collapsing the radial axis, a 3-level encoder (32,
+    64, 128 channels), a 128-channel bottleneck and a decoder whose skips
+    concatenate ``[deeper, encoder]`` on the channels, all cylindrically
+    padded, every layer with affine BatchNorm and ReLU.
+
+    flax infers the input width; here it is ``in_features`` (16, the
+    descriptor stem's width, by default). Input [K, in_features, rad=3, ele,
+    azi] -> ``(out [K, dim, ele, azi] f32, None)``, the JAX module's pair.
+    Training mode records BatchNorm statistics in ``bn_stats`` and shares
+    them over ``bn_group``, as :class:`ConvBNRelu` does."""
+
+    def __init__(self, in_features: int = 16, dim: int = 32,
+                 compute_dtype: torch.dtype = torch.float32, bn_group=None):
+        super().__init__()
+
+        def block(cin, cout, kernel=(3, 3)):
+            return ConvBNRelu(cin, cout, kernel, bn_affine=True,
+                              compute_dtype=compute_dtype, bn_group=bn_group)
+
+        self.stem = block(in_features, 32, (3, 3, 3))
+        self.enc1 = block(32, 32)
+        self.enc2 = block(32, 64)
+        self.enc3 = block(64, 128)
+        self.bott = block(128, 128)
+        self.dec3 = block(128 + 128, 64)
+        self.dec2 = block(64 + 64, 32)
+        self.dec1 = block(32 + 32, 32)
+        self.final = block(32, dim)
+
+    def forward(self, x: torch.Tensor, bn_stats: dict | None = None):
+        def conv(layer, *xs):
+            x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
+            return layer(pad_cyl_2d(x, 3), bn_stats)
+
+        x = self.stem(pad_cyl_3d(x, 3), bn_stats)[:, :, 0]   # rad 3 -> 1
+        enc1 = conv(self.enc1, x)
+        enc2 = conv(self.enc2, enc1)
+        enc3 = conv(self.enc3, enc2)
+        bott = conv(self.bott, enc3)
+        dec3 = conv(self.dec3, bott, enc3)
+        dec2 = conv(self.dec2, dec3, enc2)
+        dec1 = conv(self.dec1, dec2, enc1)
+        return conv(self.final, dec1), None

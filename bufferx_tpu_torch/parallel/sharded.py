@@ -66,6 +66,8 @@ def make_sharded_eval(params, cfg: Config, mesh: Mesh):
     scale, the JAX ``register_pair_jit`` under ``vmap``); a ragged tail is
     padded by repeating the last pair, and the padded slots are sliced off
     the gathered result. ``params``: state dicts or :class:`Models`.
+    ``is_aligned``: None, a bool, or a [B] bool tensor, sliced and padded
+    like the draws.
     """
     statics = PipelineStatics.from_config(cfg)
     models = params if isinstance(params, Models) else build_models(
@@ -74,7 +76,8 @@ def make_sharded_eval(params, cfg: Config, mesh: Mesh):
     def eval_fn(srcs: Sequence[Cloud], tgts: Sequence[Cloud],
                 draws: Draws | ScaleDraws | None = None,
                 generator: torch.Generator | None = None,
-                is_aligned: bool | None = None) -> RegistrationResult:
+                is_aligned: bool | torch.Tensor | None = None
+                ) -> RegistrationResult:
         b = len(srcs)
         if len(tgts) != b or b == 0:
             raise ValueError(f"{b} sources and {len(tgts)} targets")
@@ -85,6 +88,8 @@ def make_sharded_eval(params, cfg: Config, mesh: Mesh):
         lo = min(mesh.rank * n, b)
         hi = min(lo + n, b)
         mine = list(range(lo, hi)) + [b - 1] * (n - (hi - lo))
+        if isinstance(is_aligned, torch.Tensor) and is_aligned.ndim:
+            is_aligned = _shard(is_aligned, lo, hi, n)   # [B] -> this rank's
         local = register_batch(
             cfg, [srcs[i] for i in mine], [tgts[i] for i in mine], models,
             draws=type(draws)(*(_shard(x, lo, hi, n) for x in draws)),

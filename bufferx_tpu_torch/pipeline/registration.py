@@ -103,6 +103,7 @@ __all__ = [
     "fused_query",
     "init_params",
     "make_draws",
+    "patch_flags",
     "prepare_cloud",
     "stack_clouds",
     "stack_draws",
@@ -544,15 +545,31 @@ def _scale_patches(statics: PipelineStatics, pre: _Shared,
     )
 
 
+def patch_flags(is_aligned: bool | torch.Tensor,
+                num_fps: int) -> bool | torch.Tensor:
+    """A batch's gravity flags as :func:`align_patches` takes them for its
+    ``2B * num_fps`` patches: a bool as it is; a flag a pair [B] as a flag
+    a patch, in the patches' order (the sources' clouds, then the
+    targets', ``num_fps`` patches a cloud)."""
+    if not isinstance(is_aligned, torch.Tensor):
+        return is_aligned
+    b2 = 2 * is_aligned.shape[0]
+    return torch.cat([is_aligned, is_aligned])[:, None].expand(
+        b2, num_fps).reshape(-1)
+
+
 def _scale_candidates(models: Models, statics: PipelineStatics,
                       pre: _Shared, draws: Draws | ScaleDraws, scale: int,
-                      scale_pos: int, is_aligned: bool) -> _Candidates:
+                      scale_pos: int,
+                      is_aligned: bool | torch.Tensor) -> _Candidates:
     """One scale of a batch: embed all 2B clouds' patches in ONE pass (a
     per-patch radius divisor), match per pair, predict SO(2), pose
     candidates. ``scale`` indexes the radii, ``scale_pos`` the precomputed
-    patch stack and the per-scale draws."""
+    patch stack and the per-scale draws. ``is_aligned``: one bool for the
+    batch, or a [B] bool tensor, a flag a pair."""
     b2, nf = pre.kpts_v.shape
     b = b2 // 2
+    is_aligned = patch_flags(is_aligned, nf)
     des_r = torch.clamp_min(pre.radii[:, scale], 1e-3)           # [B]
     patches, pmask = _scale_patches(statics, pre, draws, des_r, scale_pos)
     patches = patches.reshape(b2 * nf, -1, 3)
@@ -651,7 +668,7 @@ def _pool_and_solve(statics: PipelineStatics, cand: _Candidates,
 
 def _batch_candidates(models: Models, statics: PipelineStatics, src: Cloud,
                       tgt: Cloud, draws: Draws | ScaleDraws, scales: tuple,
-                      is_aligned: bool) -> list:
+                      is_aligned: bool | torch.Tensor) -> list:
     """Per-scale candidates of a batch (stacked clouds, batched draws).
     ``vmap_scales`` and ``scale_batch_conv`` are the JAX package's
     schedulings of the same per-scale chain; here it runs unrolled."""
@@ -662,7 +679,7 @@ def _batch_candidates(models: Models, statics: PipelineStatics, src: Cloud,
 
 def _register_batch(models: Models, statics: PipelineStatics, src: Cloud,
                     tgt: Cloud, draws: Draws | ScaleDraws, scales: tuple,
-                    is_aligned: bool) -> RegistrationResult:
+                    is_aligned: bool | torch.Tensor) -> RegistrationResult:
     """A batch of pairs through the given scales. With
     ``statics.enable_early_exit`` and more than one scale this is the masked
     early exit: candidates once per scale, the (cheap) consensus + solve
@@ -687,13 +704,33 @@ class _Setup(NamedTuple):
     dev: torch.device
     statics: PipelineStatics
     models: Models
-    is_aligned: bool
+    is_aligned: bool | torch.Tensor
+
+
+def _aligned_flags(is_aligned, cfg: Config, pairs: int,
+                   dev: torch.device) -> bool | torch.Tensor:
+    """``is_aligned`` as the path takes it: None is the configuration's
+    bool; a Python bool stays one for every pair; a tensor becomes a [pairs]
+    bool tensor on ``dev`` (a 0-d one holds for every pair), even when its
+    values are all equal."""
+    if is_aligned is None:
+        return bool(cfg.patch.is_aligned_to_global_z)
+    if not isinstance(is_aligned, torch.Tensor):
+        return bool(is_aligned)
+    flags = is_aligned.to(dev, torch.bool)
+    if flags.ndim == 0:
+        return flags.expand(pairs)
+    if flags.shape != (pairs,):
+        raise ValueError(f"is_aligned has shape {tuple(flags.shape)}, "
+                         f"expected [{pairs}]: a flag a pair")
+    return flags
 
 
 def _setup(cfg: Config, clouds: Sequence[Cloud], params, is_aligned,
            device) -> _Setup:
     """What every entry point does first: the device, the statics (checked),
-    the clouds' device (checked), the models."""
+    the clouds' device (checked), the models, the gravity flag (one a pair
+    when a tensor; ``clouds`` are the sources, then the targets)."""
     dev = resolve_device(device)
     statics = PipelineStatics.from_config(cfg)
     _check_ported(statics)
@@ -704,9 +741,8 @@ def _setup(cfg: Config, clouds: Sequence[Cloud], params, is_aligned,
     models = params if isinstance(params, Models) else build_models(
         statics, params, dev
     )
-    if is_aligned is None:
-        is_aligned = cfg.patch.is_aligned_to_global_z
-    return _Setup(dev, statics, models, bool(is_aligned))
+    return _Setup(dev, statics, models,
+                  _aligned_flags(is_aligned, cfg, len(clouds) // 2, dev))
 
 
 def _default_generator(generator):
@@ -721,7 +757,7 @@ def _first(res: RegistrationResult) -> RegistrationResult:
 def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
                    params, *, draws: Draws | ScaleDraws | None = None,
                    generator: torch.Generator | None = None,
-                   is_aligned: bool | None = None,
+                   is_aligned: bool | torch.Tensor | None = None,
                    device="cuda") -> RegistrationResult:
     """Register a batch of B scan pairs with every scale, in one pass: the
     counterpart of the JAX package's ``jax.vmap(register_pair_jit)``.
@@ -732,8 +768,10 @@ def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
     :class:`Models` (build them once with :func:`build_models` when
     registering many pairs). ``draws`` fixes the random draws (a leading B);
     otherwise they come from ``generator`` (a fresh CPU generator seeded 0
-    if None). The clouds must already live on ``device``; one
-    ``is_aligned`` holds for the whole batch. With
+    if None). The clouds must already live on ``device``. ``is_aligned``:
+    None (the configuration's ``is_aligned_to_global_z``), one bool for the
+    whole batch, or a [B] bool tensor, each pair's flag (both branches of
+    the LRF alignment run and each patch takes its pair's). With
     ``cfg.match.enable_early_exit`` a pair's result is its scale-0 solve
     where that has at least ``early_exit_min_inliers`` inliers (masked:
     every scale's candidates are computed either way; for the variants that
@@ -756,13 +794,13 @@ def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
 def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                   generator: torch.Generator | None = None,
                   draws: Draws | ScaleDraws | None = None,
-                  is_aligned: bool | None = None,
+                  is_aligned: bool | torch.Tensor | None = None,
                   device="cuda") -> RegistrationResult:
     """Register one scan pair with every scale: :func:`register_batch` on
     the batch of one (see there for ``params``, early exit and the
     clouds' device). ``draws`` are one pair's (no leading dimension);
     otherwise they come from ``generator`` (a fresh CPU generator seeded 0
-    if None).
+    if None). ``is_aligned``: None, a bool, or a 0-d or [1] bool tensor.
     """
     if draws is None:
         statics = PipelineStatics.from_config(cfg)
@@ -776,7 +814,7 @@ def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
 def register_pair_early_exit(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                              generator: torch.Generator | None = None,
                              draws: tuple | None = None,
-                             is_aligned: bool | None = None,
+                             is_aligned: bool | torch.Tensor | None = None,
                              device="cuda") -> RegistrationResult:
     """Host-dispatched early exit: scale 0 alone, and all scales only when
     its solve has fewer than ``early_exit_min_inliers`` inliers (one host
@@ -802,7 +840,8 @@ def register_pair_early_exit(cfg: Config, src: Cloud, tgt: Cloud, params, *,
 def register_pair_timed(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                         generator: torch.Generator | None = None,
                         draws: Draws | ScaleDraws | None = None,
-                        is_aligned: bool | None = None, device="cuda"):
+                        is_aligned: bool | torch.Tensor | None = None,
+                        device="cuda"):
     """Per-phase fenced registration. Returns ``(result, phases)`` with
     ``phases`` in seconds of host wall time, each phase ending in
     ``torch.cuda.synchronize()`` on the card:
@@ -856,7 +895,7 @@ def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
                            batch_size: int = 4,
                            generator: torch.Generator | None = None,
                            draws: Sequence[tuple] | None = None,
-                           is_aligned: bool | None = None,
+                           is_aligned: bool | torch.Tensor | None = None,
                            split: bool = False, device="cuda") -> list:
     """Batched serving: registers ``len(srcs)`` pairs in batches of
     ``batch_size`` with two-phase early exit. Returns one
@@ -884,7 +923,9 @@ def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
     ``generator`` before the first launch (a host-to-device copy waits for
     the queued work). ``split``: the JAX package can dispatch a batch as two
     compiled programs instead of one; there is no program boundary here, and
-    both values run the same eager sequence.
+    both values run the same eager sequence. ``is_aligned``: None, one
+    bool for every pair, or a [len(srcs)] bool tensor, each pair's flag,
+    which follows its pair into the redo batch.
     """
     del split
     dev, statics, models, is_aligned = _setup(
@@ -906,10 +947,13 @@ def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
     all_scales = tuple(range(statics.num_scales))
 
     def run(idx, batch_draws, scales):
+        flags = is_aligned
+        if isinstance(flags, torch.Tensor):     # views, no host read
+            flags = torch.stack([is_aligned[i] for i in idx])
         return _register_batch(
             models, statics, stack_clouds([srcs[i] for i in idx]),
             stack_clouds([tgts[i] for i in idx]), batch_draws, scales,
-            is_aligned)
+            flags)
 
     # phase 1: scale 0 for every batch, no host read
     staged = [run(idx, d[0], (0,)) for idx, d in zip(batches, draws)]

@@ -306,10 +306,17 @@ def generate_pairs(
        dropped (-> ``valid_pcd_files.txt``).
     2. Candidate pairs (i, j) within ``window`` positions are subsampled at
        ``keep_prob`` (the reference keeps a random 25%).
-    3. trans = inv(pose_j) @ pose_i (poses of frames idx*F); pairs whose
-       max bidirectional overlap at ``voxel_size`` reaches
-       ``overlap_thresh`` are written to ``gt.log`` (+ all ratios to
-       ``overlap_ratio.txt``). Returns the accepted pair count.
+    3. trans = inv(pose_j) @ pose_i (poses of frames idx*F) maps fragment
+       i into fragment j; pairs whose max bidirectional overlap at
+       ``voxel_size`` reaches ``overlap_thresh`` are written to ``gt.log``
+       (+ all ratios to ``overlap_ratio.txt``). Returns the accepted pair
+       count.
+
+    ``gt.log`` holds ``inv(trans)``, in the 3DMatch convention that the
+    fragment loader reads (``relt_pose = inv(log pose)``, as
+    ``tools/pairgen.py`` writes its logs), so a loaded pair's pose maps the
+    source fragment onto the target. The JAX package writes ``trans``
+    itself, which its loader inverts into the pair's inverse pose.
     """
     from bufferx_tpu_torch.data.base import compute_overlap_ratio
     from bufferx_tpu_torch.data.io import read_points
@@ -357,7 +364,7 @@ def generate_pairs(
                 ratio_lines.append(f"{src_idx}\t{tgt_idx}\t{ratio:.6f}")
                 if ratio >= overlap_thresh:
                     gt.write(f"{src_idx}\t{tgt_idx}\t{len(plys)}\n")
-                    for row in trans:
+                    for row in np.linalg.inv(trans):
                         gt.write(
                             "\t".join(f"{v: .8e}" for v in row) + "\n"
                         )

@@ -44,6 +44,7 @@ __all__ = [
     "write_checkpoint",
     "DESC_MODULES",
     "POSE_MODULES",
+    "UNET_MODULES",
 ]
 
 
@@ -284,6 +285,9 @@ DESC_MODULES = {
 }
 POSE_MODULES = {"ConvBNRelu_0": "stem",
                 **{f"ConvBNRelu_{i}": f"layers.{i - 1}" for i in range(1, 10)}}
+# a CylindricalUNet's own tree: its nine layers in call order
+UNET_MODULES = {f"ConvBNRelu_{i}": name for i, name in enumerate(
+    ("stem", "enc1", "enc2", "enc3", "bott", "dec3", "dec2", "dec1", "final"))}
 _LEAVES = {
     ("params", "Conv_0", "kernel"): "weight",
     ("params", "Conv_0", "bias"): "bias",
@@ -311,7 +315,7 @@ def _flatten(tree, prefix=()):
 def params_from_numpy(tree: dict, modules: dict) -> dict:
     """Restored ``{params, batch_stats}`` tree -> state dict of the port's
     model, with ``modules`` mapping top-level flax names to port paths
-    (:data:`DESC_MODULES` or :data:`POSE_MODULES`)."""
+    (:data:`DESC_MODULES`, :data:`POSE_MODULES` or :data:`UNET_MODULES`)."""
     sd = {}
     for path, leaf in _flatten(tree):
         collection, top, *mid, layer, name = path

@@ -150,14 +150,16 @@ Phases (any failure raises and exits non-zero):
    defaults (500^3 voxels at 6 mm, band 0.2, 4 fragments of 50 frames,
    every candidate pair scored): fragments, points and accepted pairs
    against the JAX package's on the same scene (``JAX_IPHONE``; points
-   within ``IPHONE_POINT_TOL``, pairs exactly), the card's volume after 2
+   within ``IPHONE_POINT_TOL``, pairs exactly), the ``gt.log`` poses the
+   inverses of the JAX package's log (``jax_gt_log``), the card's volume after 2
    frames against the CPU's at the full grid (``IPHONE_CARD_CPU_FLIPS``),
    ms a frame of ``integrate_frame`` (CUDA events, 50 frames) beside its
    bound by bytes, s a fragment, peak memory; (b) the fragments through
    ``tools/evaluate.py --dataset Scannetpp_iphone`` with the
-   ``hard_moments_r4ft2`` weights, on the ``gt.log`` as written and inverted
-   (``gt_log_inverted``: the fault of ROADMAP Queue 3), successes >= the
-   JAX package's on each less 1, K1-K3 launches asserted and held against
+   ``hard_moments_r4ft2`` weights, on the ``gt.log`` as written and
+   inverted into the JAX package's direction (``gt_log_inverted``; ROADMAP
+   Queue 3), successes >= the JAX package's on the log of the same
+   direction less 1, K1-K3 launches asserted and held against
    their plain versions at one pair's shapes; (c) ``snapshot/hard`` written
    as the reference's ``{Desc,Pose}/best.pth`` (``reference_state_dict``)
    and imported with ``tools/import_reference_checkpoint.py``: every array
@@ -166,7 +168,24 @@ Phases (any failure raises and exits non-zero):
    4b's, or within 1e-5 m / 1e-4 degrees; K1 1, K2 1, K4 3, K5 3 a pair);
    (d) ``tools/bench_scaling.py`` at its defaults over the card's one NCCL
    rank (a spawned process): its JSON lines, pairs/s, its launches a run,
-   and K1, K2 and K4 against their plain versions at its batch's shapes.
+   and K1, K2 and K4 against their plain versions at its batch's shapes;
+14. the last names of the port: (a) a batch of 4 full-width pairs on the
+   moments path, two gravity-aligned (a turn about z) flagged True and two
+   not, ``is_aligned`` a [4] tensor, through ``register_pairs_batched``
+   with every scale, and the same pairs and draws as an all-True and an
+   all-False batch (Python bools): each slot's pose within 1e-4 m / 0.01
+   degrees of its flag's batch, the same launches, no synchronizing call
+   in the mixed batch, K1-K3 held against their plain versions at its
+   shapes (launch path ``mixed_flags``), then ``evaluate_pairs_batched`` on
+   the pairs as samples with mixed flags; (b) ``CylindricalUNet`` with
+   seeded flax-layout weights (``tools/weights.py:UNET_MODULES``): eval
+   mode at 3000 patches in float32 and bf16 against the same module on the
+   CPU (its first ``UNET_CPU_PATCHES`` patches: eval mode treats each
+   patch alone), 1e-5 and 3e-2 of the largest magnitude, ms a forward and
+   peak memory; train mode at 512 patches, forward and every parameter's
+   gradient against the CPU within 1e-2 relative L2; (c) ``random_rotation``
+   and the point-form ``density_aware_radius`` (phase 4's first cloud, its
+   2000 FPS probes) on the card against the CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -174,6 +193,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -1468,12 +1488,14 @@ def multiframe_kernel_entries(torch, reg, mf_setup, dev, path):
 
 
 def batch_kernel_entries(torch, reg, cfg, srcs, tgts, dev, path, case,
-                         patch_kernel="moments"):
+                         patch_kernel="moments", is_aligned=False):
     """K1, K2 and the patch kernel (K3 ``"moments"`` or K4
     ``"cell_query"``) against their plain versions at the shapes that a
     batch of the pairs (``srcs``, ``tgts``: prepared clouds) gives them
-    under ``cfg``, labelled ``case``. ``path``: the launch path of the
-    entries. Returns (entries, (source batch, target batch, draws))."""
+    under ``cfg``, labelled ``case``; the patch kernel's patches aligned
+    with ``is_aligned`` (a bool, or a flag a pair). ``path``: the launch
+    path of the entries. Returns (entries, (source batch, target batch,
+    draws))."""
     from bufferx_tpu_torch.geometry.lrf import align_patches
     from bufferx_tpu_torch.kernels import fps as fps_mod
     from bufferx_tpu_torch.kernels import strat_pallas
@@ -1538,7 +1560,8 @@ def batch_kernel_entries(torch, reg, cfg, srcs, tgts, dev, path, case,
     patches = pre.patches[:, 0].reshape(b * nf, S, 3)
     pmask = pre.pvalid[:, 0].reshape(b * nf, S)
     kpts = pre.kpts.reshape(b * nf, 3)
-    aligned, _, _ = align_patches(patches - kpts[:, None, :], kpts, False)
+    aligned, _, _ = align_patches(patches - kpts[:, None, :], kpts,
+                                  reg.patch_flags(is_aligned, nf))
     r_patch = torch.clamp_min(torch.cat([pre.radii[:, 0], pre.radii[:, 0]]),
                               1e-3).repeat_interleave(nf)
     normed = aligned / r_patch[:, None, None]
@@ -1833,11 +1856,12 @@ def write_iphone_scene(scene_root: str, frames: int = IPHONE_FRAMES,
 def gt_log_inverted(iphone_dir: str, out_root: str) -> str:
     """A ScanNet++ iPhone layout at ``<out_root>/scene0/iphone/`` whose
     ``gt.log`` holds the inverse of each pose in ``iphone_dir/gt.log`` (its
-    ``tsdf/`` a link to the original). ``generate_pairs`` writes inv(pose_j)
-    pose_i, which already maps fragment i into fragment j, and the fragment
-    loader inverts the log's pose once more: a fault of both packages
-    (ROADMAP.md, Queue 3). Scored against the inverted log, a registration
-    is held against the fragments' true relative pose. Returns out_root."""
+    ``tsdf/`` a link to the original). The port's ``generate_pairs`` writes
+    inv(trans), trans = inv(pose_j) pose_i mapping fragment i into fragment
+    j, and the fragment loader inverts the log's pose: the pair is scored
+    against its true relative pose. The JAX package writes trans itself,
+    which the loader turns into the inverse (ROADMAP.md, Queue 3): inverting
+    the port's log gives that direction. Returns out_root."""
     from bufferx_tpu_torch.data.base import (
         read_trajectory_log,
         write_trajectory_log,
@@ -1865,12 +1889,20 @@ def gt_log_inverted(iphone_dir: str, out_root: str) -> str:
 #   python scripts/evaluate.py --dataset Scannetpp_iphone --cpu \
 #       --checkpoint-dir snapshot/hard_moments_r4ft2 --root D   (and DI)
 # 4 fragments of 50 frames, 4 of the 6 candidate pairs accepted, the points
-# of each fragment and the first 16 hex digits of each PLY's sha256; at the
-# preset's full width 0 of 4 successes on the log as written (the pair's
-# pose is scored against its inverse: RRE 19-41 degrees, twice each pair's
-# rotation) and 4 of 4 on the inverted log. Phase 13 must match the counts
-# within IPHONE_POINT_TOL (relative) and the pairs exactly, and reach each
-# success count less 1.
+# of each fragment, the first 16 hex digits of each PLY's sha256 and of its
+# gt.log's; at the preset's full width 0 of 4 successes on its log as
+# written ("as_written": the JAX package writes trans = inv(pose_j) pose_i,
+# which the loader inverts, so each pair is scored against its inverse pose:
+# RRE 19-41 degrees, twice each pair's rotation) and 4 of 4 on that log
+# inverted ("inverted": the true relative pose). The port writes the
+# inverted direction itself: its log as written must reach the JAX
+# package's "inverted" count less 1, and its log inverted (the JAX
+# direction) is scored and logged beside the JAX package's "as_written"
+# count. Phase 13 must match the fragments' points within IPHONE_POINT_TOL
+# (relative) and the pairs exactly; the port's gt.log poses are the
+# inverses of the JAX log's (rebuilt from the fragments' poses with the JAX
+# package's formula and format, whose sha256 must be JAX's) within
+# IPHONE_LOG_TOL.
 JAX_IPHONE = dict(
     fragments=4, pairs=4, gt_pairs=[[0, 1], [1, 2], [1, 3], [2, 3]],
     points=[427994, 440485, 442378, 355049],
@@ -1879,6 +1911,10 @@ JAX_IPHONE = dict(
     gt_log_sha256="f28534c9672471ff",
     successes={"as_written": 0, "inverted": 4})
 IPHONE_POINT_TOL = 1e-4
+IPHONE_LOG_TOL = 1e-6
+# the port's phase 13 (b) runs: its log as written and that log inverted,
+# each held to the JAX package's count on the log of the same direction
+IPHONE_LOGS = {"as_written": "inverted", "jax_direction": "as_written"}
 # voxels of the card's volume allowed to differ from the CPU's after the
 # first 2 frames at the full grid (the operations round alike on both)
 IPHONE_CARD_CPU_FLIPS = 0
@@ -1889,6 +1925,28 @@ IPHONE_GRID = dict(origin=(-1.5, -1.5, 0.5), dims=(500, 500, 500),
 # scale, the sampled path with the cuDNN backbone)
 BENCH_LAUNCHES = {"fps": 1, "strat": 1, "moments": 0, "cell_query": 3,
                   "conv_stack": 0}
+
+
+def jax_gt_log(layout, rows, poses):
+    """The JAX package's ``gt.log`` for the port's pairs ``rows``, rebuilt
+    as its ``generate_pairs`` writes it: trans = inv(pose_j) pose_i from the
+    fragments' base-frame poses, ``f"{v: .8e}"`` entries. Returns (its
+    bytes, the largest entry of |pose - inv(trans)| over the port's log
+    ``poses``)."""
+    from bufferx_tpu_torch.tools.scannetpp import FRAMES_PER_FRAGMENT
+
+    def frag_pose(idx):
+        return np.loadtxt(os.path.join(
+            layout.pose_dir,
+            f"frame_{int(idx) * FRAMES_PER_FRAGMENT:06d}.pose.txt"))
+
+    out, err = [], 0.0
+    for (i, j, n), pose in zip(rows, poses):
+        trans = np.linalg.inv(frag_pose(j)) @ frag_pose(i)
+        err = max(err, float(np.abs(pose - np.linalg.inv(trans)).max()))
+        out.append(f"{int(i)}\t{int(j)}\t{int(n)}\n")
+        out += ["\t".join(f"{v: .8e}" for v in row) + "\n" for row in trans]
+    return "".join(out).encode(), err
 
 
 def reference_state_dict(torch, snapshot_dir: str) -> dict:
@@ -1960,8 +2018,6 @@ def write_reference_snapshot(torch, snapshot_dir: str, out_dir: str) -> str:
 
 
 def _sha16(path: str) -> str:
-    import hashlib
-
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()[:16]
 
@@ -2013,11 +2069,12 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
         plys = [os.path.join(layout.tsdf_dir, f"cloud_bin_{i}.ply")
                 for i in range(stats["fragments"])]
         points = [len(read_points(f)) for f in plys]
-        gt_pairs, _ = read_trajectory_log(os.path.join(layout.iphone_dir,
-                                                       "gt.log"))
-        gt_pairs = [[int(i), int(j)] for i, j, _n in gt_pairs]
+        log_rows, log_poses = read_trajectory_log(
+            os.path.join(layout.iphone_dir, "gt.log"))
+        gt_pairs = [[int(i), int(j)] for i, j, _n in log_rows]
         hashes = [_sha16(f) for f in plys]
-        gt_hash = _sha16(os.path.join(layout.iphone_dir, "gt.log"))
+        jax_log, log_err = jax_gt_log(layout, log_rows, log_poses)
+        jax_log_hash = hashlib.sha256(jax_log).hexdigest()[:16]
         frag_s = stats["seconds"]["fragments"] / max(stats["fragments"], 1)
         log(f"offline (a): scene of {IPHONE_FRAMES} frames written in "
             f"{scene_s:.1f} s; prepare_scene {prep_s:.1f} s (extract "
@@ -2030,8 +2087,10 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
             f"{JAX_IPHONE['gt_pairs']}); peak {peak / 2**30:.2f} GiB "
             f"allocated ({(peak - base_mem) / 2**30:.2f} GiB above the "
             f"{base_mem / 2**30:.2f} GiB held before); PLY bytes equal to "
-            f"JAX's: {hashes == JAX_IPHONE['ply_sha256']}, gt.log: "
-            f"{gt_hash == JAX_IPHONE['gt_log_sha256']}")
+            f"JAX's: {hashes == JAX_IPHONE['ply_sha256']}; gt.log poses "
+            f"the inverses of the JAX log's within {log_err:.2e} (that log "
+            f"rebuilt: sha256 {jax_log_hash}, JAX's "
+            f"{JAX_IPHONE['gt_log_sha256']})")
         if stats["depth_frames"] != IPHONE_FRAMES or \
                 stats["fragments"] != JAX_IPHONE["fragments"]:
             raise AssertionError(f"offline (a): {stats}")
@@ -2044,6 +2103,12 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
                 raise AssertionError(f"offline (a): fragment points "
                                      f"{points}, the JAX package's "
                                      f"{JAX_IPHONE['points']}")
+        if jax_log_hash != JAX_IPHONE["gt_log_sha256"] or \
+                log_err > IPHONE_LOG_TOL:
+            raise AssertionError(
+                f"offline (a): gt.log poses {log_err:.2e} from the inverses "
+                f"of the JAX log's (rebuilt with sha256 {jax_log_hash}, "
+                f"JAX's {JAX_IPHONE['gt_log_sha256']})")
 
         # the card against the CPU on the first 2 frames at the full grid
         def frame(t):
@@ -2095,7 +2160,8 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
             points=points, jax_points=JAX_IPHONE["points"],
             pairs=gt_pairs, jax_pairs=JAX_IPHONE["gt_pairs"],
             ply_bytes_equal_jax=hashes == JAX_IPHONE["ply_sha256"],
-            gt_log_bytes_equal_jax=gt_hash == JAX_IPHONE["gt_log_sha256"],
+            gt_log_inverse_of_jax_max_err=log_err,
+            jax_gt_log_rebuilt_sha256=jax_log_hash,
             card_cpu_values_differing=flips,
             integrate_ms_median=float(np.median(ms)),
             integrate_ms_mean=float(np.mean(ms)),
@@ -2113,11 +2179,11 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
 
         # ---- (b) the fragments through tools/evaluate.py ----------------
         inv_root = gt_log_inverted(layout.iphone_dir,
-                                   os.path.join(root, "iphone_inverted"))
+                                   os.path.join(root, "iphone_jax"))
         n = stats["pairs"]
         cli = {}
         for label, data_root in (("as_written", iphone_root),
-                                 ("inverted", inv_root)):
+                                 ("jax_direction", inv_root)):
             cuda_build.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2132,7 +2198,7 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
             want = dict({kk: 0 for kk in got}, fps=n, strat=n, moments=3 * n)
             rows = summary["rows"]
             successes = sum(r["success"] for r in rows)
-            jax_count = JAX_IPHONE["successes"][label]
+            jax_count = JAX_IPHONE["successes"][IPHONE_LOGS[label]]
             # the harness's means leave out its first 5 pairs (the
             # reference's warm-up): the rows' own times, the first pair's
             # aside
@@ -2164,13 +2230,14 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
         measured["iphone_evaluate"] = cli
         # K1-K3 at the shapes the evaluation gives them: one pair of
         # fragments, loaded and capped as tools/evaluate.py loads them
-        cfg_i = make_cfg("Scannetpp_iphone", inv_root).override(
+        cfg_i = make_cfg("Scannetpp_iphone", iphone_root).override(
             patch=load_snapshot_config(SNAPSHOT))
         sample = get_dataset(cfg_i)[0]
         pair_i = [reg.prepare_cloud(sample[key], cfg_i, seed=s, device=dev)
                   for s, key in enumerate(("src_points", "tgt_points"))]
         e_iphone, _ = batch_kernel_entries(
-            torch, reg, cfg_i, pair_i[:1], pair_i[1:], dev, "iphone_inverted",
+            torch, reg, cfg_i, pair_i[:1], pair_i[1:], dev,
+            "iphone_as_written",
             f"ScanNet++ iPhone fragments, 1 pair (2 clouds of "
             f"{cfg_i.capacity.max_points} points)")
         entries += e_iphone
@@ -2283,6 +2350,311 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
         shutil.rmtree(root, ignore_errors=True)
     measured["seconds"] = time.perf_counter() - t_phase
     log(f"offline tools phase: {measured['seconds']:.1f} s")
+    return launches, measured, entries
+
+
+# ---- phase 14: the last names of the port ----------------------------------
+# (a): the flags of the mixed batch, pair by pair (True: a gravity-aligned
+# pair), and how far a slot's pose may be from its flag's single-flag batch
+# (m, degrees; the same draws give the same bits where every operation is
+# pair by pair)
+MIXED_FLAGS = (True, False, True, False)
+MIXED_POINTS = 24000
+MIXED_POSE_TOL = (1e-4, 0.01)
+MIXED_LAUNCHES = {"fps": 2, "strat": 2, "moments": 4, "cell_query": 0,
+                  "conv_stack": 0}
+# (b): CylindricalUNet at the serving patch count (2 x 1500 keypoints), the
+# patches the CPU runs beside the card in eval mode, the training batch;
+# tolerances of tests/test_torch_models.py (LAYER_TOL, against the largest
+# magnitude) and tests/test_torch_train_forward.py (GRAD_TOL, relative L2)
+UNET_PATCHES = 3000
+UNET_CPU_PATCHES = 300
+UNET_TRAIN_PATCHES = 512
+UNET_TOL = {"f32": 1e-5, "bf16": 3e-2}
+UNET_GRAD_TOL = 1e-2
+UNET_CHANNELS = ((16, 32), (32, 32), (32, 64), (64, 128), (128, 128),
+                 (256, 64), (128, 32), (64, 32), (32, 32))
+
+
+def gravity_pair(rs: np.random.RandomState, num_points: int):
+    """``synthetic_pair_full_overlap``'s object and noise under a turn about
+    z and a translation: a gravity-aligned pair. (src, tgt, T)."""
+    from bufferx_tpu_torch.data.modelnet import synthetic_object
+
+    obj = synthetic_object(rs, num_points)
+    a = rs.uniform(0.0, 2.0 * np.pi)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = [[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                 [0.0, 0.0, 1.0]]
+    T[:3, 3] = rs.uniform(-0.5, 0.5, 3)
+    src = (obj + rs.randn(*obj.shape) * 0.002).astype(np.float32)
+    tgt = (obj @ T[:3, :3].T + T[:3, 3]
+           + rs.randn(*obj.shape) * 0.002).astype(np.float32)
+    return src, tgt, T
+
+
+def unet_tree(rs: np.random.RandomState) -> dict:
+    """flax ``{params, batch_stats}`` of a ``CylindricalUNet`` (16 input
+    channels, dim 32): kernels scaled by their fan in, BatchNorm scale,
+    bias and running statistics away from their initial values."""
+    params, stats = {}, {}
+    for i, (cin, cout) in enumerate(UNET_CHANNELS):
+        kshape = (3, 3, 3, cin, cout) if i == 0 else (3, 3, cin, cout)
+        fan_in = int(np.prod(kshape[:-1]))
+        params[f"ConvBNRelu_{i}"] = {
+            "Conv_0": {"kernel": (rs.randn(*kshape) / np.sqrt(fan_in))
+                       .astype(np.float32),
+                       "bias": (rs.randn(cout) * 0.1).astype(np.float32)},
+            "BatchNorm_0": {
+                "scale": rs.uniform(0.5, 1.5, cout).astype(np.float32),
+                "bias": (rs.randn(cout) * 0.1).astype(np.float32)}}
+        stats[f"ConvBNRelu_{i}"] = {"BatchNorm_0": {
+            "mean": (rs.randn(cout) * 0.1).astype(np.float32),
+            "var": rs.uniform(0.5, 1.5, cout).astype(np.float32)}}
+    return {"params": params, "batch_stats": stats}
+
+
+def pose_diff(torch, a, b):
+    """(translation difference m, rotation difference degrees) in float64,
+    the angle from the skew part of a^T b (arccos of the trace loses
+    1e-2 degrees to float32 rounding near the identity)."""
+    a, b = a.double(), b.double()
+    d = a[:3, :3].T @ b[:3, :3]
+    w = torch.stack([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0], d[1, 0] - d[0, 1]])
+    ang = torch.atan2(0.5 * torch.linalg.norm(w),
+                      0.5 * (torch.trace(d) - 1.0))
+    return (float(torch.linalg.norm(a[:3, 3] - b[:3, 3])),
+            float(torch.rad2deg(ang)))
+
+
+def run_last_names(torch, cuda_build, reg, se3, dev, cfg, models, cloud):
+    """Phase 14 (see the module notes): ``cfg``/``models`` the moments
+    path's, ``cloud`` phase 4's first source cloud. Returns (launches by
+    run, what it measured, kernel entries)."""
+    from bufferx_tpu_torch.core.se3 import random_rotation
+    from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
+    from bufferx_tpu_torch.eval.harness import evaluate_pairs_batched
+    from bufferx_tpu_torch.kernels import density_aware_radius
+    from bufferx_tpu_torch.kernels.fps import fps
+    from bufferx_tpu_torch.models.layers import CylindricalUNet
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+    from bufferx_tpu_torch.tools.weights import UNET_MODULES, params_from_numpy
+
+    t_phase = time.perf_counter()
+    launches, measured = {}, {}
+
+    # ---- (a) a batch whose pairs differ in is_aligned_to_global_z --------
+    raw = []
+    for i, flag in enumerate(MIXED_FLAGS):
+        rs = np.random.RandomState(1400 + i)
+        raw.append(gravity_pair(rs, MIXED_POINTS) if flag else
+                   synthetic_pair_full_overlap(rs, num_points=MIXED_POINTS))
+    srcs = [reg.prepare_cloud(p[0], cfg, seed=i, device=dev)
+            for i, p in enumerate(raw)]
+    tgts = [reg.prepare_cloud(p[1], cfg, seed=i, device=dev)
+            for i, p in enumerate(raw)]
+    gts = [torch.from_numpy(p[2]).to(dev) for p in raw]
+    flags = torch.tensor(MIXED_FLAGS, dtype=torch.bool, device=dev)
+    cfg_all = cfg.override(match=dict(early_exit_min_inliers=10 ** 6))
+    statics = reg.PipelineStatics.from_config(cfg_all)
+    gen = torch.Generator().manual_seed(1400)
+    draws = [tuple(reg.make_draws(statics, gen, dev, batch=len(raw))
+                   for _phase in range(2))]
+
+    def batched(aligned):
+        return reg.register_pairs_batched(
+            cfg_all, srcs, tgts, models, batch_size=len(raw), draws=draws,
+            is_aligned=aligned, device=dev)
+
+    batched(flags)                                         # warm-up
+    runs = {}
+    for label, aligned in (("mixed", flags), ("all_true", True),
+                           ("all_false", False)):
+        torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = batched(aligned)
+        torch.cuda.synchronize()
+        runs[label] = dict(out=out, seconds=time.perf_counter() - t0,
+                           launches={n: kk.launches
+                                     for n, kk in cuda_build.KERNELS.items()})
+        if runs[label]["launches"] != MIXED_LAUNCHES:
+            raise AssertionError(f"mixed flags ({label}): launches "
+                                 f"{runs[label]['launches']}, expected "
+                                 f"{MIXED_LAUNCHES}")
+    launches["mixed_flags"] = runs["mixed"]["launches"]
+    worst, bit_equal, successes, rows = (0.0, 0.0), True, 0, []
+    for i, flag in enumerate(MIXED_FLAGS):
+        got = runs["mixed"]["out"][i]
+        ref = runs["all_true" if flag else "all_false"]["out"][i]
+        other = runs["all_false" if flag else "all_true"]["out"][i]
+        d_m, d_deg = pose_diff(torch, got.pose, ref.pose)
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+        bit_equal &= equal
+        worst = (max(worst[0], d_m), max(worst[1], d_deg))
+        rte, rre, ok = pose_errors(se3, cfg, got.pose, gts[i])
+        o_rte, o_rre, o_ok = pose_errors(se3, cfg, other.pose, gts[i])
+        successes += ok
+        rows.append(dict(flag=flag, rte=rte, rre=rre, success=ok,
+                         vs_flag_batch_m=d_m, vs_flag_batch_deg=d_deg,
+                         equal_bits=equal, other_flag_success=o_ok))
+        log(f"mixed flags, slot {i} (flag {flag}): RTE {rte:.4f} m, RRE "
+            f"{rre:.3f} deg, success {ok}; against the all-{flag} batch "
+            f"{d_m:.2e} m, {d_deg:.2e} deg, equal bits {equal}; with the "
+            f"other flag RTE {o_rte:.4f} m, RRE {o_rre:.3f} deg")
+        if not bool(torch.isfinite(got.pose).all()) or \
+                d_m > MIXED_POSE_TOL[0] or d_deg > MIXED_POSE_TOL[1]:
+            raise AssertionError(f"mixed flags, slot {i}: {d_m:.2e} m, "
+                                 f"{d_deg:.2e} deg from its flag's batch")
+    if successes < len(MIXED_FLAGS) - 1:
+        raise AssertionError(f"mixed flags: {successes} of "
+                             f"{len(MIXED_FLAGS)} pairs register")
+    src4, tgt4 = reg.stack_clouds(srcs), reg.stack_clouds(tgts)
+    scales = tuple(range(statics.num_scales))
+
+    def one_batch():
+        return reg._register_batch(models, statics, src4, tgt4, draws[0][1],
+                                   scales, flags)
+
+    one_batch()
+    syncs = sync_calls(torch, one_batch)
+    log(f"mixed flags: {successes}/{len(MIXED_FLAGS)} successes; each slot "
+        f"within {worst[0]:.2e} m / {worst[1]:.2e} deg of its flag's "
+        f"batch (equal bits: {bit_equal}); {len(MIXED_FLAGS)} pairs in "
+        f"{runs['mixed']['seconds'] * 1e3:.1f} ms mixed, "
+        f"{runs['all_true']['seconds'] * 1e3:.1f} all True, "
+        f"{runs['all_false']['seconds'] * 1e3:.1f} all False; launches "
+        f"{launches['mixed_flags']}; the mixed batch through all scales "
+        f"under the sync-debug mode: {len(syncs)} synchronizing calls "
+        f"{sorted(set(syncs))}")
+    if syncs:
+        raise AssertionError("a mixed-flag batch makes the host wait for "
+                             "the card")
+    entries, _ = batch_kernel_entries(
+        torch, reg, cfg_all, srcs, tgts, dev, "mixed_flags",
+        f"mixed-flag batch, {2 * len(raw)} clouds of "
+        f"{cfg.capacity.max_points} points, flags {list(MIXED_FLAGS)}",
+        is_aligned=flags)
+    samples = [dict(src_points=p[0], tgt_points=p[1], relt_pose=p[2],
+                    src_id=f"s{i}", tgt_id=f"t{i}",
+                    is_aligned_to_global_z=flag)
+               for i, (p, flag) in enumerate(zip(raw, MIXED_FLAGS))]
+    summary = evaluate_pairs_batched(cfg, samples, models,
+                                     batch_size=len(samples), device=dev)
+    h_succ = sum(r["success"] for r in summary["rows"])
+    log(f"mixed flags, evaluate_pairs_batched at B = {len(samples)}: "
+        f"{h_succ}/{summary['num_pairs']} successes, "
+        f"{summary['pairs_per_second']:.2f} pairs/s")
+    measured["mixed_flags"] = dict(
+        flags=list(MIXED_FLAGS), slots=rows, successes=successes,
+        worst_vs_flag_batch_m=worst[0], worst_vs_flag_batch_deg=worst[1],
+        equal_bits=bit_equal, synchronizing_calls=len(syncs),
+        seconds={k: r["seconds"] for k, r in runs.items()},
+        launches=launches["mixed_flags"], harness_successes=h_succ,
+        harness_pairs_per_s=summary["pairs_per_second"])
+    del runs, src4, tgt4
+
+    # ---- (b) CylindricalUNet on the card against the CPU -----------------
+    sd = params_from_numpy(unet_tree(np.random.RandomState(1401)),
+                           UNET_MODULES)
+    x = torch.from_numpy(np.random.RandomState(1402).randn(
+        UNET_PATCHES, 16, 3, 7, 20).astype(np.float32))
+    x_dev = x.to(dev)
+    unet = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        card = CylindricalUNet(compute_dtype=dt).to(dev).eval()
+        card.load_state_dict(sd, strict=True)
+        host = CylindricalUNet(compute_dtype=dt).eval()
+        host.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            got, none = card(x_dev)
+            want, _ = host(x[:UNET_CPU_PATCHES])
+        got_h = got.cpu()
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got_h[:UNET_CPU_PATCHES] - want).abs().max())
+        if none is not None or got.shape != (UNET_PATCHES, 32, 7, 20) or \
+                not bool(torch.isfinite(got_h).all()) or \
+                err > UNET_TOL[name] * scale:
+            raise AssertionError(f"CylindricalUNet {name}: card against CPU "
+                                 f"{err} > {UNET_TOL[name]} x {scale}")
+        del got
+
+        def forward(card=card):
+            with torch.no_grad():
+                return card(x_dev)
+
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        forward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        ms = time_ms(forward, 10)
+        unet[name] = dict(max_abs_err=err, scale=scale, ms=ms,
+                          peak_above_before_gib=peak / 2 ** 30)
+        log(f"CylindricalUNet {name}, eval, {UNET_PATCHES} patches: "
+            f"{ms:.3f} ms a forward, peak {peak / 2 ** 30:.2f} GiB above "
+            f"what was held; against the CPU on {UNET_CPU_PATCHES} patches "
+            f"{err:.2e} (tolerance {UNET_TOL[name]} x {scale:.2f})")
+    # train mode: the batch's statistics, forward and backward
+    xt = x[:UNET_TRAIN_PATCHES]
+    wt = torch.from_numpy(np.random.RandomState(1403).randn(
+        UNET_TRAIN_PATCHES, 32, 7, 20).astype(np.float32))
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = CylindricalUNet().to(d).train()
+        m.load_state_dict(sd, strict=True)
+        out, _ = m(xt.to(d))
+        torch.sum(out * wt.to(d)).backward()
+        res[where] = (out.detach().cpu(),
+                      {k: p.grad.cpu() for k, p in m.named_parameters()})
+    fwd_l2 = _rel_l2({"out": res["cpu"][0]}, {"out": res["card"][0]},
+                     ["out"])
+    keys = sorted(res["cpu"][1])
+    grad_l2 = _rel_l2(res["cpu"][1], res["card"][1], keys)
+    log(f"CylindricalUNet f32, train, {UNET_TRAIN_PATCHES} patches, card "
+        f"against CPU: forward {fwd_l2:.2e}, gradients {grad_l2:.2e} "
+        f"relative L2 over {len(keys)} parameters")
+    if fwd_l2 > UNET_GRAD_TOL or grad_l2 > UNET_GRAD_TOL:
+        raise AssertionError("CylindricalUNet: train-mode card and CPU "
+                             "disagree")
+    unet["train"] = dict(forward_rel_l2=fwd_l2, grad_rel_l2=grad_l2)
+    measured["unet"] = unet
+    del x_dev, res
+
+    # ---- (c) random_rotation and density_aware_radius -------------------
+    gen_u = torch.Generator().manual_seed(1404)
+    rot_err = 0.0
+    for _ in range(4):
+        u = torch.rand(3, generator=gen_u)
+        for num_axis in (0, 1, 3):
+            for magnitude in (1.0, 0.25):
+                on_card = random_rotation(u.to(dev), num_axis, magnitude)
+                if on_card.device.type != dev.type:
+                    raise AssertionError("random_rotation left the card")
+                rot_err = max(rot_err, float((on_card.cpu() - random_rotation(
+                    u, num_axis, magnitude)).abs().max()))
+    xyz, mask = cloud.xyz[None], cloud.mask[None]
+    idx, valid = fps(xyz, mask, statics.num_probe)
+    kpts = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3))
+    r_card = density_aware_radius(xyz, mask, kpts, valid, statics.thresholds,
+                                  statics.radius_max)
+    r_cpu = density_aware_radius(xyz.cpu(), mask.cpu(), kpts.cpu(),
+                                 valid.cpu(), statics.thresholds,
+                                 statics.radius_max)
+    r_diff = float((r_card.cpu() - r_cpu).abs().max())
+    log(f"random_rotation card against CPU: {rot_err:.2e}; "
+        f"density_aware_radius on phase 4's first cloud "
+        f"({int(mask.sum())} points, {statics.num_probe} probes): card "
+        f"{r_card.cpu().tolist()}, CPU {r_cpu.tolist()}")
+    if rot_err > 1e-6 or r_diff > 0.01 + 1e-6:
+        raise AssertionError("random_rotation or density_aware_radius: "
+                             "card and CPU disagree")
+    measured["names"] = dict(random_rotation_max_err=rot_err,
+                             radii_card=r_card.cpu().tolist(),
+                             radii_cpu=r_cpu.tolist())
+    measured["seconds"] = time.perf_counter() - t_phase
+    log(f"last names phase: {measured['seconds']:.1f} s")
     return launches, measured, entries
 
 
@@ -2947,6 +3319,12 @@ def main() -> int:
     launches.update(launches_off)
     kernels.extend(off_kernels)
 
+    # ---- 14. the last names of the port -------------------------------------
+    launches_last, last, last_kernels = run_last_names(
+        torch, cuda_build, reg, se3, dev, cfg, models, pairs[0][0])
+    launches.update(launches_last)
+    kernels.extend(last_kernels)
+
     # ---- result lines -----------------------------------------------------
     out = []
     for kr in kernels:
@@ -2971,6 +3349,7 @@ def main() -> int:
     print(json.dumps({"dataset": dataset}), flush=True)
     print(json.dumps({"multiframe": multiframe}), flush=True)
     print(json.dumps({"offline": offline}), flush=True)
+    print(json.dumps({"last_names": last}), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

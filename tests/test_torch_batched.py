@@ -253,3 +253,32 @@ def test_one_host_read_per_batch(world, monkeypatch, mode, batches_redone):
     # the redo batches are not padded: 4 pairs and 1 pair
     assert launched[2:] == [((0, 1, 2), 4, 1), ((0, 1, 2), 1, 2)][
         :batches_redone]
+
+
+def test_tensor_flags_match_the_bool_flag(world, monkeypatch):
+    """A [5] bool tensor of False flags takes the tensor path (both LRF
+    branches, ``torch.where`` a patch) and gives the bool False run's
+    results to the bit, at the threshold whose redo batch takes pairs 1
+    and 3 (each pair's flag follows it into its redo slot); the flags are
+    read back nowhere (one host read a batch, as with a bool)."""
+    tcfg = world["tcfg"].override(
+        match=dict(early_exit_min_inliers=MODES["mixed"]))
+    pairs, models, draws = world["pairs"], world["models"], world["draws"]
+    _jres, want = world["results"]["mixed"]
+    reads = _HostReads(monkeypatch)
+    out = treg.register_pairs_batched(
+        tcfg, [p["ts"] for p in pairs], [p["tt"] for p in pairs], models,
+        batch_size=BATCH, draws=draws, is_aligned=torch.zeros(N_PAIRS,
+                                                              dtype=torch.bool),
+        device="cpu")
+    assert reads.calls == ["tolist", "tolist"]
+    monkeypatch.undo()
+    assert [int(r.scales_used) for r in out] == SCALES_USED["mixed"]
+    for got, ref in zip(out, want):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="a flag a pair"):
+        treg.register_pairs_batched(
+            tcfg, [p["ts"] for p in pairs], [p["tt"] for p in pairs], models,
+            batch_size=BATCH, draws=draws,
+            is_aligned=torch.zeros(BATCH, dtype=torch.bool), device="cpu")

@@ -313,13 +313,67 @@ def test_evaluate_pairs_batched_matches_jax(world, tmp_path):
     assert rows[2]["model_time"] > 0
 
 
-def test_batched_refuses_mixed_alignment(world):
-    samples = [dict(s) for s in world["samples"][:2]]
-    samples[1]["is_aligned_to_global_z"] = True
-    with pytest.raises(ValueError, match="is_aligned_to_global_z"):
-        tharness.evaluate_pairs_batched(world["tcfg"], samples,
-                                        world["models"], batch_size=2,
-                                        prefetch_workers=0, device="cpu")
+def _gravity_pair(seed: int, n: int = 2000):
+    """A full-overlap pair whose ground truth turns about z alone (a
+    gravity-aligned pair): ``synthetic_pair_full_overlap``'s object and
+    noise under a yaw and a translation."""
+    from bufferx_tpu.data.modelnet import synthetic_object
+
+    rs = np.random.RandomState(seed)
+    obj = synthetic_object(rs, n)
+    a = rs.uniform(0.0, 2.0 * np.pi)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = [[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                 [0.0, 0.0, 1.0]]
+    T[:3, 3] = rs.uniform(-0.5, 0.5, 3)
+    src = (obj + rs.randn(*obj.shape) * 0.002).astype(np.float32)
+    tgt = (obj @ T[:3, :3].T + T[:3, 3]
+           + rs.randn(*obj.shape) * 0.002).astype(np.float32)
+    return src, tgt, T
+
+
+def test_batched_refuses_mixed_alignment(world, tmp_path):
+    """A batch whose pairs differ in ``is_aligned_to_global_z`` (a pair
+    with a general rotation, False; a gravity-aligned pair, True) against
+    the JAX harness, which maps the flag per pair, with its draws: rows
+    within the tolerances of ``_same_rows``. Each of the port's pairs equals
+    ``register_batch`` on the same clouds and draws with its flag as one
+    Python bool for the batch (the bool branch), to the bit, and the
+    aligned pair's pose moves when its flag does."""
+    s0, t0, T0 = synthetic_pair_full_overlap(np.random.RandomState(44), 2000)
+    s1, t1, T1 = _gravity_pair(45)
+    samples = [dict(src_points=s, tgt_points=t, relt_pose=T, src_id=f"m{i}",
+                    tgt_id=f"n{i}", is_aligned_to_global_z=flag)
+               for i, (s, t, T, flag) in enumerate(((s0, t0, T0, False),
+                                                    (s1, t1, T1, True)))]
+    key = jax.random.PRNGKey(world["jcfg"].data.manual_seed)
+    _key, sub = jax.random.split(key)
+    keys = jax.random.split(sub, 2)
+    draws = treg.stack_draws([_jax_draws(keys[j], world["jst"])[1]
+                              for j in range(2)])
+    jsum = jharness.evaluate_pairs_batched(
+        world["jcfg"], samples, world["params"], batch_size=2,
+        prefetch_workers=0, csv_path=str(tmp_path / "j.csv"))
+    tsum = tharness.evaluate_pairs_batched(
+        world["tcfg"], samples, world["models"], batch_size=2,
+        prefetch_workers=0, csv_path=str(tmp_path / "t.csv"), draws=[draws],
+        device="cpu")
+    _same_rows(_read(tmp_path / "t.csv"), _read(tmp_path / "j.csv"))
+    assert tsum["recall"] == jsum["recall"] == 1.0
+
+    tcfg = world["tcfg"]
+    srcs = [treg.prepare_cloud(s["src_points"], tcfg, seed=2 * i,
+                               device="cpu") for i, s in enumerate(samples)]
+    tgts = [treg.prepare_cloud(s["tgt_points"], tcfg, seed=2 * i + 1,
+                               device="cpu") for i, s in enumerate(samples)]
+    single = {flag: treg.register_batch(tcfg, srcs, tgts, world["models"],
+                                        draws=draws, is_aligned=flag,
+                                        device="cpu").pose
+              for flag in (False, True)}
+    for i, flag in enumerate((False, True)):
+        assert np.array_equal(tsum["rows"][i]["pose"],
+                              single[flag][i].numpy()), i
+    assert not torch.equal(single[False][1], single[True][1])
 
 
 def test_harness_runs_on_the_card_by_default(world, monkeypatch):

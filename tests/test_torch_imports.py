@@ -158,3 +158,141 @@ def test_offline_tools_import_alone(module):
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
+
+
+# Public names of the JAX package that the port does not define under the
+# same name in the counterpart module, each with the reason (ROADMAP.md,
+# Queue 1): XLA dispatch forms, Pallas entry points whose kernels the port
+# launches through its own wrappers, and names that live elsewhere.
+NAME_EXCEPTIONS = {
+    "register_pair_jit": "an XLA dispatch form: register_pair and "
+                         "register_batch are the port's entries",
+    "register_batch_split": "two XLA programs for one batch: there is no "
+                            "program boundary in eager PyTorch",
+    "farthest_point_sampling": "the Pallas entry of K1: the port's is fps "
+                               "(farthest_point_sampling_plain on the CPU)",
+    "farthest_point_sampling_pallas": "the Pallas entry of K1: "
+                                      "farthest_point_sampling_cuda",
+    "spt_moments_pallas": "the Pallas entry of K3: spt_moments_cuda",
+    "spt_cell_query_pallas": "the Pallas entry of K4: spt_cell_query_cuda",
+    "cyl_conv_stack_fused": "the Pallas entry of K5: cyl_conv_stack_cuda",
+    "cyl_conv_stack_reference": "K5's pure-jax mirror: "
+                                "cyl_conv_stack_plain",
+    "moments_to_features": "the port keeps the product form, "
+                           "moments_to_features_mm",
+    "sqdist_compensated": "a bf16 hi/lo split for the TPU's matrix unit: "
+                          "the port's sqdist is float32 with TF32 off",
+    "NUM_MOMENTS": "defined in the port's geometry/spt_pallas.py",
+    "point_moment_features": "defined in the port's geometry/spt_pallas.py",
+    "load_snapshot_config": "defined in the port's tools/weights.py",
+    "save_snapshot_config": "defined in the port's tools/weights.py",
+}
+
+
+def _top_level(path: str):
+    """(names a module defines at top level: def, class, assignment;
+    names it imports at top level)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    defined, imported = set(), set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            defined.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            defined |= {t.id for t in targets if isinstance(t, ast.Name)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            imported |= {(a.asname or a.name).split(".")[0]
+                         for a in node.names}
+    return defined, imported
+
+
+def _module_pairs():
+    """(relative path, JAX module, port counterpart) for every module of the
+    JAX package."""
+    jax_root = os.path.join(ROOT, "bufferx_tpu")
+    for d, _dirs, files in sorted(os.walk(jax_root)):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), jax_root)
+                port = "config.py" if rel == os.path.join(
+                    "config", "__init__.py") else rel
+                yield rel, os.path.join(d, f), os.path.join(
+                    ROOT, "bufferx_tpu_torch", port)
+
+
+def _public_jax_names(path: str) -> set:
+    """A JAX module's public names: its top-level public defs, classes and
+    assignments, and in an ``__init__.py`` every name it imports."""
+    defined, imported = _top_level(path)
+    names = {n for n in defined if not n.startswith("_")}
+    if os.path.basename(path) == "__init__.py":
+        names |= imported
+    return names
+
+
+def test_every_jax_public_name_has_a_counterpart():
+    """Each public name of each JAX module is defined or imported in the
+    port's counterpart module, but for ``NAME_EXCEPTIONS``; each exception
+    is a public JAX name that its counterpart module still does not define
+    (an ``__init__.py`` not export), so the list cannot go stale."""
+    missing, stale, seen = [], [], set()
+    for rel, jax_path, port_path in _module_pairs():
+        want = _public_jax_names(jax_path)
+        defined, imported = _top_level(port_path)
+        missing += [f"{rel}: {n}" for n in sorted(
+            want - defined - imported - set(NAME_EXCEPTIONS))]
+        exists = defined | (imported if rel.endswith("__init__.py")
+                            else set())
+        for name in sorted(want & set(NAME_EXCEPTIONS)):
+            seen.add(name)
+            if name in exists:
+                stale.append(f"{rel}: {name}")
+    assert not missing, missing
+    assert not stale, f"exceptions that the port now has: {stale}"
+    assert seen == set(NAME_EXCEPTIONS), sorted(set(NAME_EXCEPTIONS) - seen)
+
+
+SUBPACKAGES = ["kernels", "pipeline", "geometry", "solver", "train", "models",
+               "data", "core"]
+
+
+@pytest.mark.parametrize("package", SUBPACKAGES)
+def test_subpackage_reexports(package):
+    """A fresh interpreter imports the subpackage and every name its
+    ``__init__.py`` re-exports: no JAX, flax or JAX package loaded, no
+    kernel built or launched."""
+    from bufferx_tpu_torch import cuda_build
+    from bufferx_tpu_torch.geometry import spt_pallas  # noqa: F401
+    from bufferx_tpu_torch.kernels import (  # noqa: F401
+        conv_pallas,
+        fps,
+        strat_pallas,
+    )
+
+    init = os.path.join(ROOT, "bufferx_tpu_torch", package, "__init__.py")
+    _defined, names = _top_level(init)
+    assert names, f"{package}/__init__.py re-exports nothing"
+    absent = [k.lib_path() for k in cuda_build.KERNELS.values()
+              if not os.path.exists(k.lib_path())]
+    # a name that is also a submodule's must stay the module: a function
+    # of that name would hide the module from ``from package import name``
+    code = (f"import os, sys, types\n"
+            f"import bufferx_tpu_torch.{package} as pkg\n"
+            f"from bufferx_tpu_torch import cuda_build\n"
+            f"here = os.path.dirname(pkg.__file__)\n"
+            f"for name in {sorted(names)!r}:\n"
+            f"    assert getattr(pkg, name) is not None, name\n"
+            f"    if os.path.exists(os.path.join(here, name + '.py')):\n"
+            f"        assert isinstance(getattr(pkg, name), types.ModuleType), "
+            f"name\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(FORBIDDEN) + ")\n"
+            "assert not bad, bad\n"
+            "for k in cuda_build.KERNELS.values():\n"
+            "    assert k.launches == 0 and k._lib is None, k.name\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
+    assert [p for p in absent if os.path.exists(p)] == []

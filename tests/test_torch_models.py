@@ -236,3 +236,155 @@ def test_minispinnet_rejects_unported_modes():
                            fused_conv=True, width=2.0).fused
     assert MiniSpinNet(mode="sampled", compute_dtype=torch.bfloat16,
                        fused_conv=True).fused
+
+
+# ---- CylindricalUNet ---------------------------------------------------------
+UNET_CHANNELS = [(16, 32), (32, 32), (32, 64), (64, 128), (128, 128),
+                 (256, 64), (128, 32), (64, 32), (32, 32)]
+
+
+def _unet_tree(seed: int = 5) -> dict:
+    """flax ``{params, batch_stats}`` of the JAX ``CylindricalUNet`` (16
+    input channels, dim 32) from a RandomState: kernels scaled by their fan
+    in, BatchNorm scale, bias and running statistics away from their
+    initial values."""
+    rs = np.random.RandomState(seed)
+    params, stats = {}, {}
+    for i, (cin, cout) in enumerate(UNET_CHANNELS):
+        kshape = (3, 3, 3, cin, cout) if i == 0 else (3, 3, cin, cout)
+        fan_in = int(np.prod(kshape[:-1]))
+        f32 = np.float32
+        params[f"ConvBNRelu_{i}"] = {
+            "Conv_0": {"kernel": (rs.randn(*kshape) / np.sqrt(fan_in))
+                       .astype(f32),
+                       "bias": (rs.randn(cout) * 0.1).astype(f32)},
+            "BatchNorm_0": {"scale": rs.uniform(0.5, 1.5, cout).astype(f32),
+                            "bias": (rs.randn(cout) * 0.1).astype(f32)}}
+        stats[f"ConvBNRelu_{i}"] = {"BatchNorm_0": {
+            "mean": (rs.randn(cout) * 0.1).astype(f32),
+            "var": rs.uniform(0.5, 1.5, cout).astype(f32)}}
+    return {"params": params, "batch_stats": stats}
+
+
+def _unet_pair(dt, tree):
+    from bufferx_tpu.models.layers import CylindricalUNet as JaxUNet
+    from bufferx_tpu_torch.models.layers import CylindricalUNet
+    from bufferx_tpu_torch.tools.weights import UNET_MODULES, params_from_numpy
+
+    jdt, tdt = DTYPES[dt]
+    tm = CylindricalUNet(compute_dtype=tdt)
+    tm.load_state_dict(params_from_numpy(tree, UNET_MODULES), strict=True)
+    return JaxUNet(compute_dtype=jdt), tm
+
+
+UNET_LAYERS = ["stem", "enc1", "enc2", "enc3", "bott", "dec3", "dec2", "dec1",
+               "final"]
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cylindrical_unet_layerwise(dt, train):
+    """Every layer and the output against the flax module with the same
+    weights, eval mode (running statistics) and train mode (the batch's,
+    and the running statistics they give)."""
+    from bufferx_tpu_torch.models.layers import running_stats
+    from bufferx_tpu_torch.tools.weights import UNET_MODULES, params_from_numpy
+
+    tree = _unet_tree()
+    jm, tm = _unet_pair(dt, tree)
+    x = np.random.RandomState(6).randn(6, 3, 7, 20, 16).astype(np.float32)
+    variables = jax.tree.map(jnp.asarray, tree)
+
+    @jax.jit
+    def run(v, x):
+        return jm.apply(v, x, train=train, capture_intermediates=True,
+                        mutable=["intermediates", "batch_stats"])
+
+    (out, none), state = run(variables, jnp.asarray(x))
+    assert none is None
+    inter = state["intermediates"]
+    tm.train(train)
+    got = _hook_outputs({n: getattr(tm, n) for n in UNET_LAYERS})
+    bn_stats = {}
+    with torch.no_grad():
+        t_out, t_none = tm(torch.from_numpy(x).permute(0, 4, 1, 2, 3),
+                           bn_stats)
+    assert t_none is None
+    tol = LAYER_TOL[dt]
+    for i, name in enumerate(UNET_LAYERS):
+        ref = inter[f"ConvBNRelu_{i}"]["__call__"][0]
+        g = got[name][:, :, 0] if i == 0 else got[name]
+        _close(ref[:, 0] if i == 0 else ref, torch.movedim(g, 1, -1), tol,
+               name)
+    _close(out, torch.movedim(t_out, 1, -1), tol, "output")
+    assert t_out.dtype == torch.float32 and t_out.shape == (6, 32, 7, 20)
+    if train:
+        want = params_from_numpy(
+            {"batch_stats": jax.tree.map(np.asarray, state["batch_stats"])},
+            UNET_MODULES)
+        new = running_stats(tm, bn_stats)
+        assert sorted(new) == sorted(want)
+        for k in want:
+            _close(want[k].numpy(), new[k], tol, k)
+    else:
+        assert not bn_stats
+
+
+def test_cylindrical_unet_gradient_matches_jax():
+    """Train-mode float32 gradients of a scalar loss, every parameter,
+    against ``jax.grad``: relative L2 over all of them within 1e-2
+    (``GRAD_TOL`` of ``tests/test_torch_train_forward.py``)."""
+    from bufferx_tpu_torch.tools.weights import UNET_MODULES, params_from_numpy
+
+    tree = _unet_tree(7)
+    jm, tm = _unet_pair("f32", tree)
+    rs = np.random.RandomState(8)
+    x = rs.randn(6, 3, 7, 20, 16).astype(np.float32)
+    w = rs.randn(6, 7, 20, 32).astype(np.float32)
+
+    @jax.jit
+    def grads(p):
+        def loss(p):
+            (out, _), _ = jm.apply({"params": p,
+                                    "batch_stats": tree["batch_stats"]},
+                                   jnp.asarray(x), train=True,
+                                   mutable=["batch_stats"])
+            return jnp.sum(out * w)
+        return jax.grad(loss)(p)
+
+    want = params_from_numpy(
+        {"params": jax.tree.map(np.asarray,
+                                grads(jax.tree.map(jnp.asarray,
+                                                   tree["params"])))},
+        UNET_MODULES)
+    tm.train()
+    out, _ = tm(torch.from_numpy(x).permute(0, 4, 1, 2, 3))
+    torch.sum(torch.movedim(out, 1, -1) * torch.from_numpy(w)).backward()
+    got = dict(tm.named_parameters())
+    assert sorted(got) == sorted(want)
+    num = sum(float(((want[k] - got[k].grad) ** 2).sum()) for k in want)
+    den = sum(float((want[k] ** 2).sum()) for k in want)
+    assert (num / den) ** 0.5 <= 1e-2, (num / den) ** 0.5
+
+
+def test_cylindrical_unet_weights_round_trip():
+    """flax tree -> state dict -> flax tree, equal to the bit, in both
+    directions, and the state dict's keys are the module's own."""
+    from bufferx_tpu_torch.models.layers import CylindricalUNet
+    from bufferx_tpu_torch.tools.weights import (
+        UNET_MODULES,
+        numpy_from_params,
+        params_from_numpy,
+    )
+
+    tree = _unet_tree(9)
+    sd = params_from_numpy(tree, UNET_MODULES)
+    assert sorted(sd) == sorted(CylindricalUNet().state_dict())
+    back = numpy_from_params(sd, UNET_MODULES)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    assert all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(
+        jax.tree.leaves(back), jax.tree.leaves(tree)))
+    again = params_from_numpy(back, UNET_MODULES)
+    assert all(torch.equal(sd[k], again[k]) for k in sd)
+    assert sd["stem.weight"].shape == (32, 16, 3, 3, 3)
+    assert sd["dec3.weight"].shape == (64, 256, 3, 3)

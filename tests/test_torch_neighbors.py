@@ -95,3 +95,50 @@ def test_radius_matches_jax(subsample):
         np.testing.assert_array_equal(got[i], want)
         assert got[i, 0] > got[i, 1] > got[i, 2] > 0
     assert (got[1] > got[0]).all()        # the sparser cloud: larger radii
+
+
+def _radius_cases():
+    """(name, pts, mask, kpts, kmask): the two clouds of
+    ``tests/test_kernels.py``'s radius tests (a clean one, and a masked one
+    whose masked points lie far away) and a ``hard_pair`` source with its
+    FPS probes."""
+    from bufferx_tpu_torch.data.hardsynth import hard_pair
+    from bufferx_tpu_torch.kernels.fps import farthest_point_sampling_plain
+
+    rs = np.random.RandomState(0)
+    pts = rs.randn(3000, 3).astype(np.float32)
+    yield "clean", pts, np.ones(3000, bool), pts[:200], np.ones(200, bool)
+    far = pts[:1000].copy()
+    far[500:] *= 100
+    mask = np.arange(1000) < 500
+    yield "masked", far, mask, pts[:100], np.ones(100, bool)
+    src = hard_pair(np.random.RandomState(11), num_points=4000)[0]
+    src = src.astype(np.float32)
+    smask = np.ones(len(src), bool)
+    idx = farthest_point_sampling_plain(torch.from_numpy(src)[None],
+                                        torch.from_numpy(smask)[None], 256)[0]
+    yield "hard_pair", src, smask, src[idx.numpy()], np.ones(256, bool)
+
+
+def test_density_aware_radius_matches_jax():
+    """The point form: the port's float32 ``sqdist`` then the bisection,
+    against the JAX function (its precise ``sqdist``) on each case, one at
+    a time and as a batch. The radii are equal after the rounding to 2
+    decimals; a distance within an ulp of a bf16 rounding boundary may
+    flip one bisection step, which moves a radius by one step, 0.01, and
+    no more (measured: equal on all three)."""
+    from bufferx_tpu.kernels.radius import density_aware_radius as j_dar
+    from bufferx_tpu_torch.kernels.radius import density_aware_radius
+
+    th = (5.0, 2.0, 0.5)
+    for name, pts, mask, kpts, kmask in _radius_cases():
+        want = np.asarray(j_dar(jnp.asarray(pts), jnp.asarray(mask),
+                                jnp.asarray(kpts), jnp.asarray(kmask), th))
+        args = [torch.from_numpy(x) for x in (pts, mask, kpts, kmask)]
+        got = density_aware_radius(*args, th).numpy()
+        assert got.shape == (3,) and got.dtype == np.float32, name
+        np.testing.assert_allclose(got, want, rtol=0, atol=0.01 + 1e-6,
+                                   err_msg=name)
+        batch = density_aware_radius(*(a[None] for a in args), th)
+        np.testing.assert_array_equal(batch[0].numpy(), got)
+        assert got[0] > got[1] > got[2] > 0, name
