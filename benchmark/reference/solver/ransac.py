@@ -1,0 +1,91 @@
+"""Massively parallel correspondence RANSAC.
+
+Counterpart of :func:`bufferx_tpu.solver.ransac.ransac_pose`: a fixed budget
+of minimal 3-point sets drawn uniformly from the sampling pool by rank
+selection, solved all at once by Horn/Kabsch, filtered by Open3D's
+edge-length and distance checkers, scored in chunks against every evaluated
+correspondence, and the winner refit by weighted Kabsch on its inliers.
+
+A leading pair dimension takes the place of the JAX package's ``vmap``.
+The draws are explicit: ``rank_draws [B, H, 3]`` holds uniform integers in
+[0, 2^30) (reduced modulo the pool size here, as the JAX solver reduces its
+``randint`` draw). A test passes JAX's draw; by default they come from a
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from benchmark.reference.core.linalg import kabsch, take_rows
+from benchmark.reference.core.se3 import integrate
+
+__all__ = ["RansacResult", "ransac_pose", "RANK_RANGE"]
+
+RANK_RANGE = 1 << 30
+
+
+class RansacResult(NamedTuple):
+    pose: torch.Tensor          # [B, 4, 4]
+    num_inliers: torch.Tensor   # [B] int64
+    inlier_mask: torch.Tensor   # [B, C]
+
+
+def ransac_pose(src, tgt, pool_mask, eval_mask, rank_draws, dist_th: float,
+                similar_th: float = 0.8, chunk: int = 2048) -> RansacResult:
+    """A batch of pairs: src/tgt [B, C, 3]; pool_mask (sampling pool) and
+    eval_mask (scored set) [B, C] bool; rank_draws [B, H, 3] int in
+    [0, 2^30). Nothing here reads a value back to the host."""
+    # empty pool: fall back to eval_mask, then to everything
+    pool = torch.where(
+        pool_mask.any(dim=1, keepdim=True), pool_mask,
+        torch.where(eval_mask.any(dim=1, keepdim=True), eval_mask,
+                    torch.ones_like(pool_mask)),
+    )
+    cum = torch.cumsum(pool.to(torch.int64), dim=1)              # inclusive
+    npool = torch.clamp_min(cum[:, -1], 1)
+    ranks = rank_draws.to(torch.int64) % npool[:, None, None]    # [B, H, 3]
+    b, h, _ = ranks.shape
+    # idx = #{cum <= rank}: the rank-th pool member
+    sel = torch.searchsorted(cum, ranks.reshape(b, h * 3), right=True)
+    a = take_rows(src, sel).reshape(b, h, 3, 3)                  # [B, H, 3, 3]
+    bb = take_rows(tgt, sel).reshape(b, h, 3, 3)
+
+    # Open3D CorrespondenceCheckerBasedOnEdgeLength
+    ea = torch.linalg.norm(a - torch.roll(a, 1, dims=2), dim=-1)
+    eb = torch.linalg.norm(bb - torch.roll(bb, 1, dims=2), dim=-1)
+    ratio = torch.minimum(ea, eb) / torch.clamp_min(torch.maximum(ea, eb), 1e-12)
+    edge_ok = torch.all(ratio > similar_th, dim=-1)
+
+    R, t = kabsch(a, bb)                                         # [B, H, 3, 3]
+
+    # Open3D CorrespondenceCheckerBasedOnDistance on the minimal set
+    wa = torch.matmul(a, R.transpose(-1, -2)) + t[:, :, None, :]
+    dist_ok = torch.all(torch.linalg.norm(wa - bb, dim=-1) <= dist_th, dim=-1)
+    hyp_ok = edge_ok & dist_ok
+
+    scores = []
+    for i in range(0, h, chunk):
+        warped = (torch.einsum("bhij,bcj->bhci", R[:, i:i + chunk], src)
+                  + t[:, i:i + chunk, None, :])
+        d = torch.linalg.norm(warped - tgt[:, None], dim=-1)
+        counts = torch.sum((d < dist_th) & eval_mask[:, None], dim=-1)
+        scores.append(torch.where(hyp_ok[:, i:i + chunk], counts,
+                                  torch.full_like(counts, -1)))
+    best = torch.argmax(torch.cat(scores, dim=1), dim=1)         # [B]
+    R_best = take_rows(R, best[:, None])[:, 0]                   # [B, 3, 3]
+    t_best = take_rows(t, best[:, None])[:, 0]                   # [B, 3]
+
+    warped = torch.matmul(src, R_best.transpose(1, 2)) + t_best[:, None]
+    inliers = (torch.linalg.norm(warped - tgt, dim=-1) < dist_th) & eval_mask
+    w = inliers.to(src.dtype)
+    R_fit, t_fit = kabsch(src, tgt, w)
+    enough = torch.sum(w, dim=1) >= 3
+    R_out = torch.where(enough[:, None, None], R_fit, R_best)
+    t_out = torch.where(enough[:, None], t_fit, t_best)
+
+    warped2 = torch.matmul(src, R_out.transpose(1, 2)) + t_out[:, None]
+    final = (torch.linalg.norm(warped2 - tgt, dim=-1) < dist_th) & eval_mask
+    return RansacResult(integrate(R_out, t_out), torch.sum(final, dim=1), final)
