@@ -41,6 +41,20 @@ package's ``vmap`` of ``register_pair_jit``), and
 for every batch, then all scales for the pairs whose scale-0 solve was not
 confident; its only host read is one transfer of the inlier counts per batch.
 
+Every entry point and stage opens a span
+(:func:`bufferx_tpu_torch.utils.timers.span`, which records only while
+tracing is on and adds no synchronisation; the stages time the stream
+too): ``bufferx.prepare``
+(:func:`prepare_cloud`); ``bufferx.register``, the one root of
+:func:`register_batch`, :func:`register_pair`,
+:func:`register_pair_early_exit` and :func:`register_pair_timed`;
+``bufferx.serve``, the root of :func:`register_pairs_batched`, with
+``bufferx.phase1``, ``bufferx.phase2`` and under it ``bufferx.fetch``, the
+host read of a batch; in every pass ``bufferx.precompute`` (with
+``bufferx.prefilter``, the clutter prefilter), ``bufferx.candidates`` a
+scale (with ``bufferx.describe``, the descriptor net) and
+``bufferx.solve`` (with ``bufferx.refine``, IRLS).
+
 Random draws are explicit (:class:`Draws`): the strip offsets of the fused
 stratified query or the per-scale offsets of the other queries, and the
 RANSAC rank draws. By default they come from a ``torch.Generator``; a test
@@ -91,6 +105,7 @@ from bufferx_tpu_torch.solver.gnc import gnc_tls_solve
 from bufferx_tpu_torch.solver.irls import post_refinement
 from bufferx_tpu_torch.solver.ransac import draw_ranks, ransac_pose
 from bufferx_tpu_torch.solver.so2 import so2_pose_candidates
+from bufferx_tpu_torch.utils.timers import span, spanned
 
 __all__ = [
     "Cloud",
@@ -344,6 +359,7 @@ def init_params(cfg: Config, generator: torch.Generator) -> dict:
     return out
 
 
+@spanned("bufferx.prepare")
 def prepare_cloud(xyz: np.ndarray, cfg: Config, seed: int = 0,
                   device="cuda") -> Cloud:
     """Host-side shuffle (FPS start / random-subset semantics) and pad to
@@ -445,6 +461,8 @@ def _centroid(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                                                         1.0)
 
 
+@spanned("bufferx.precompute", stream=True,
+         pairs=lambda statics, src, *_a, **_k: src.xyz.shape[0])
 def _precompute(statics: PipelineStatics, src: Cloud, tgt: Cloud,
                 draws: Draws | ScaleDraws, scales: tuple,
                 keep_d2: bool = False) -> _Shared:
@@ -456,7 +474,8 @@ def _precompute(statics: PipelineStatics, src: Cloud, tgt: Cloud,
     if statics.clutter_filter:
         # FPS, d2, the radius cloud's choice and the patches all see the
         # refined masks
-        mask = density_inlier_mask(xyz, mask)
+        with span("bufferx.prefilter", pairs=b, stream=True):
+            mask = density_inlier_mask(xyz, mask)
     idx, v = fps(xyz, mask, statics.num_probe)
     probe = take_rows(xyz, idx)                                  # [2B, P, 3]
 
@@ -558,6 +577,8 @@ def patch_flags(is_aligned: bool | torch.Tensor,
         b2, num_fps).reshape(-1)
 
 
+@spanned("bufferx.candidates", stream=True,
+         pairs=lambda models, statics, pre, *_a, **_k: pre.radii.shape[0])
 def _scale_candidates(models: Models, statics: PipelineStatics,
                       pre: _Shared, draws: Draws | ScaleDraws, scale: int,
                       scale_pos: int,
@@ -582,7 +603,8 @@ def _scale_candidates(models: Models, statics: PipelineStatics,
     inv = _spt_features(aligned / r_patch, pmask, statics)
     if statics.use_bf16:
         inv = inv.to(torch.bfloat16)
-    out = _describe(models, statics, inv)
+    with span("bufferx.describe", pairs=b, stream=True):
+        out = _describe(models, statics, inv)
     desc2 = out["desc"].reshape(b2, nf, -1)
     equi2 = out["equi"].reshape((b2, nf) + out["equi"].shape[1:])
     R2 = R2.reshape(b2, nf, 3, 3)
@@ -620,12 +642,16 @@ def _solve(statics: PipelineStatics, cand: _Candidates, pool: torch.Tensor,
     return res.pose, res.num_inliers
 
 
+@spanned("bufferx.refine", stream=True,
+         pairs=lambda statics, pose, *_a, **_k: pose.shape[0])
 def _refine(statics: PipelineStatics, pose: torch.Tensor,
             cand: _Candidates) -> torch.Tensor:
     return post_refinement(pose, cand.ss, cand.tt, cand.valid,
                            statics.dist_th, num_iters=statics.irls_iters)
 
 
+@spanned("bufferx.solve", stream=True,
+         pairs=lambda statics, cand, *_a, **_k: cand.valid.shape[0])
 def _pool_and_solve(statics: PipelineStatics, cand: _Candidates,
                     rank_draws: torch.Tensor, src: Cloud, tgt: Cloud,
                     num_scales_used: int,
@@ -754,6 +780,8 @@ def _first(res: RegistrationResult) -> RegistrationResult:
     return RegistrationResult(*(x[0] for x in res))
 
 
+@spanned("bufferx.register",
+         pairs=lambda cfg, srcs, *_a, **_k: len(srcs))
 def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
                    params, *, draws: Draws | ScaleDraws | None = None,
                    generator: torch.Generator | None = None,
@@ -791,6 +819,7 @@ def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
                            tuple(range(statics.num_scales)), is_aligned)
 
 
+@spanned("bufferx.register", pairs=1)
 def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                   generator: torch.Generator | None = None,
                   draws: Draws | ScaleDraws | None = None,
@@ -806,11 +835,13 @@ def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
         statics = PipelineStatics.from_config(cfg)
         draws = make_draws(statics, _default_generator(generator),
                            resolve_device(device))
-    return _first(register_batch(cfg, [src], [tgt], params,
-                                 draws=stack_draws([draws]),
-                                 is_aligned=is_aligned, device=device))
+    # register_batch's body, inside this call's span alone
+    return _first(register_batch.__wrapped__(
+        cfg, [src], [tgt], params, draws=stack_draws([draws]),
+        is_aligned=is_aligned, device=device))
 
 
+@spanned("bufferx.register", pairs=1)
 def register_pair_early_exit(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                              generator: torch.Generator | None = None,
                              draws: tuple | None = None,
@@ -837,6 +868,7 @@ def register_pair_early_exit(cfg: Config, src: Cloud, tgt: Cloud, params, *,
         tuple(range(statics.num_scales)), is_aligned))
 
 
+@spanned("bufferx.register", pairs=1)
 def register_pair_timed(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                         generator: torch.Generator | None = None,
                         draws: Draws | ScaleDraws | None = None,
@@ -885,11 +917,13 @@ def register_pair_timed(cfg: Config, src: Cloud, tgt: Cloud, params, *,
     return _first(res), phases
 
 
+@spanned("bufferx.fetch", pairs=lambda res: res.num_inliers.shape[0])
 def _fetch_inliers(res: RegistrationResult) -> list:
     """The one host read of two-phase serving: a batch's inlier counts."""
     return res.num_inliers.tolist()
 
 
+@spanned("bufferx.serve", pairs=lambda cfg, srcs, *_a, **_k: len(srcs))
 def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
                            tgts: Sequence[Cloud], params, *,
                            batch_size: int = 4,
@@ -956,22 +990,25 @@ def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
             flags)
 
     # phase 1: scale 0 for every batch, no host read
-    staged = [run(idx, d[0], (0,)) for idx, d in zip(batches, draws)]
+    with span("bufferx.phase1", pairs=n):
+        staged = [run(idx, d[0], (0,)) for idx, d in zip(batches, draws)]
 
     # phase 2: one read per batch, then the unconfident pairs in one batch
     results: list = [None] * n
-    for idx, d, res0 in zip(batches, draws, staged):
-        inliers = _fetch_inliers(res0)
-        redo = [j for j in range(len(idx))
-                if inliers[j] < statics.early_exit_min_inliers]
-        res_full = None
-        if redo:
-            d2 = type(d[1])(*(x[:len(redo)] for x in d[1]))
-            res_full = run([idx[j] for j in redo], d2, all_scales)
-        for j, i in enumerate(idx):
-            if j in redo:
-                slot = redo.index(j)
-                results[i] = RegistrationResult(*(x[slot] for x in res_full))
-            else:
-                results[i] = RegistrationResult(*(x[j] for x in res0))
+    with span("bufferx.phase2", pairs=n):
+        for idx, d, res0 in zip(batches, draws, staged):
+            inliers = _fetch_inliers(res0)
+            redo = [j for j in range(len(idx))
+                    if inliers[j] < statics.early_exit_min_inliers]
+            res_full = None
+            if redo:
+                d2 = type(d[1])(*(x[:len(redo)] for x in d[1]))
+                res_full = run([idx[j] for j in redo], d2, all_scales)
+            for j, i in enumerate(idx):
+                if j in redo:
+                    slot = redo.index(j)
+                    results[i] = RegistrationResult(
+                        *(x[slot] for x in res_full))
+                else:
+                    results[i] = RegistrationResult(*(x[j] for x in res0))
     return results

@@ -11,20 +11,26 @@ descriptor mode (``snapshot/hard`` has none: the reference "sampled"
 descriptor), and ``--fused-conv`` runs the descriptor backbone as the
 fused conv stack. It prints:
 
-- per stage, the host wall time around the stage ending in a
-  synchronize (precompute, each scale's candidates, consensus + solve);
+- the program's own spans (``bufferx_tpu_torch.utils.timers``): the
+  ``--pairs`` pairs through ``register_pair``, each ending in one
+  synchronize, under ``tracing()``; then, from ``spans()``, the first
+  call's tree (each span under its parent, with its pairs, stream ms and
+  host ms) and the spans by name: how many, and their stream ms (the
+  stages': the stream's time between CUDA events at the span's ends, no
+  fence in between) and host ms, a pair (the pairs of the calls' roots);
 - from ``torch.profiler`` over one ``register_pair``: the device time per
-  kernel name (top 25), the summed device time, the wall time and the
-  device's idle share (1 - device time / wall, one stream so kernels do
-  not overlap);
+  kernel name (top 25), the device time of every kernel, copy and fill,
+  the wall time, and the device's idle share: 1 - the union of the device
+  operations' intervals over the profiled window;
 - one JSON line with those numbers.
 
-``--batch B`` takes batches of B pairs in the place of single pairs (the
-stages of batched serving, ``--pairs`` batches after the warm-up), and
-profiles two batch runs: scale 0 alone, which is phase 1 of
-``register_pairs_batched``, and all scales, which is its phase 2 for a batch
-whose pairs are all redone; device time, wall time and idle share of each,
-also per pair, and the peak memory.
+``--batch B`` serves ``--pairs`` batches of B pairs after the warm-up
+through ``register_pairs_batched`` at batch size B (two-phase serving:
+its tree holds ``bufferx.phase1``, ``bufferx.phase2`` and a
+``bufferx.fetch`` a batch), and profiles two batch runs: scale 0 alone,
+which is phase 1 of ``register_pairs_batched``, and all scales, which is
+its phase 2 for a batch whose pairs are all redone; device time, wall time
+and idle share of each, also per pair, and the peak memory.
 
 ``--dataset`` takes another preset than ``ModelNet40``; with one that
 turns the clutter prefilter on (``3DMatch``), the prefilter is also
@@ -40,45 +46,56 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from bufferx_tpu_torch.config import make_cfg
 from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
 from bufferx_tpu_torch.kernels.density import density_inlier_mask
 from bufferx_tpu_torch.pipeline import registration as reg
 from bufferx_tpu_torch.tools.weights import load_snapshot, load_snapshot_config
+from bufferx_tpu_torch.utils.timers import spans, tracing
 
 SNAPSHOT = os.path.join(os.path.dirname(__file__), "..", "..", "snapshot",
                         "hard_moments_r4ft2")
+# the Chrome trace's categories of device operations, and the span that
+# bounds the profiled window
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+WINDOW = "trace_pair.window"
 
 
-def _staged(models, statics, src, tgt, draws) -> dict:
-    """One batch (stacked clouds, batched draws; a single pair is the batch
-    of one), stage by stage, with host wall times (ms)."""
-    out = {}
-    scales = tuple(range(statics.num_scales))
-    t0 = time.perf_counter()
-    pre = reg._precompute(statics, src, tgt, draws, scales)
-    torch.cuda.synchronize()
-    out["precompute"] = (time.perf_counter() - t0) * 1e3
-    cands = []
-    for s in scales:
-        t0 = time.perf_counter()
-        cands.append(reg._scale_candidates(models, statics, pre, draws, s, s,
-                                           False))
-        torch.cuda.synchronize()
-        out[f"scale{s}"] = (time.perf_counter() - t0) * 1e3
-    del pre
-    t0 = time.perf_counter()
-    reg._pool_and_solve(statics, reg._cat_candidates(cands), draws.ransac,
-                        src, tgt, len(scales))
-    torch.cuda.synchronize()
-    out["solve"] = (time.perf_counter() - t0) * 1e3
-    return out
+def _device_ops(prof) -> tuple:
+    """(window (start, end), [(name, start, duration, category)] of the
+    device operations) in us, from the profile's Chrome trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    window, ops = None, []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        start, dur = float(ev["ts"]), float(ev.get("dur", 0.0))
+        if ev.get("cat") in DEVICE_CATEGORIES:
+            ops.append((ev.get("name", "?"), start, dur, ev["cat"]))
+        elif ev.get("name") == WINDOW and ev.get("cat") == "user_annotation":
+            window = (start, start + dur)
+    return window, ops
+
+
+def _busy_us(ops: list, window: tuple) -> float:
+    """Length of the union of the operations' intervals inside ``window``."""
+    busy, end = 0.0, window[0]
+    for _n, s, d, _c in sorted(ops, key=lambda op: op[1]):
+        s, e = max(s, end), min(s + d, window[1])
+        if e > s:
+            busy += e - s
+            end = e
+    return busy
 
 
 def _profiled(fn, label: str, pairs: int) -> tuple:
@@ -89,31 +106,70 @@ def _profiled(fn, label: str, pairs: int) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
+        with torch.profiler.record_function(WINDOW):
+            fn()
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    spans()                       # the program's spans of the profiled run
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # kernel events only: operator events carry their kernels' time too
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
+    window, ops = _device_ops(prof)
+    by_name: dict = {}
+    for name, _s, d, cat in ops:
+        if cat == "kernel":
+            ms, count = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + d / 1e3, count + 1)
+    rows = sorted(((ms, count, key) for key, (ms, count) in by_name.items()),
+                  reverse=True)
+    launches = sum(r[1] for r in rows)
+    device_ms = sum(op[2] for op in ops) / 1e3
+    window_ms = (window[1] - window[0]) / 1e3
+    idle = 1 - _busy_us(ops, window) / 1e3 / window_ms
     print(f"profiled {label}: wall {wall_ms:.2f} ms (under the profiler), "
-          f"device {device_ms:.2f} ms, idle share "
-          f"{1 - device_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} "
-          f"launches, peak memory {peak_gb:.2f} GB"
+          f"device {device_ms:.2f} ms, idle share {idle:.3f} of the "
+          f"{window_ms:.2f} ms window, {launches} launches, peak memory "
+          f"{peak_gb:.2f} GB"
           + (f"; per pair: wall {wall_ms / pairs:.2f} ms, device "
              f"{device_ms / pairs:.2f} ms" if pairs > 1 else ""))
     for ms, count, key in rows[:25]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
     numbers = {
         "profiled_wall_ms": wall_ms, "profiled_device_ms": device_ms,
-        "idle_share": 1 - device_ms / wall_ms, "pairs": pairs,
-        "launches": sum(r[1] for r in rows), "peak_memory_gb": peak_gb,
+        "window_ms": window_ms, "idle_share": idle, "pairs": pairs,
+        "launches": launches, "peak_memory_gb": peak_gb,
         "top_kernels_ms": {k[:90]: ms for ms, _c, k in rows[:25]},
     }
     return numbers, prof
+
+
+def _span_tree(records: list) -> list:
+    """[(depth, record)] of the first call's spans (those under the root
+    that opened first), in the order they opened, each under its parent."""
+    if not records:
+        return []
+    first = min(records, key=lambda r: r.id).root
+    depth: dict = {}
+    out = []
+    for r in sorted((r for r in records if r.root == first),
+                    key=lambda r: r.id):
+        depth[r.id] = depth[r.parent] + 1 if r.parent is not None else 0
+        out.append((depth[r.id], r))
+    return out
+
+
+def _span_table(records: list) -> dict:
+    """{span name: {"count", "stream_ms", "host_ms"}}, the times a pair
+    (over the pairs of the calls' roots; stream ms None for the spans that
+    do not time the stream), names in the order they first opened."""
+    pairs = sum(r.pairs or 0 for r in records if r.parent is None) or 1
+    table: dict = {}
+    for r in sorted(records, key=lambda r: r.id):
+        row = table.setdefault(r.name, {"count": 0, "stream_ms": None,
+                                        "host_ms": 0.0})
+        row["count"] += 1
+        if r.stream_ms is not None:
+            row["stream_ms"] = (row["stream_ms"] or 0.0) + r.stream_ms / pairs
+        row["host_ms"] += r.host_ms / pairs
+    return table
 
 
 def main() -> int:
@@ -155,25 +211,61 @@ def main() -> int:
                                                    24000)
             srcs.append(reg.prepare_cloud(s, cfg, seed=i, device=dev))
             tgts.append(reg.prepare_cloud(t, cfg, seed=i, device=dev))
-        batches.append((reg.stack_clouds(srcs), reg.stack_clouds(tgts),
+        batches.append((srcs, tgts,
                         reg.make_draws(statics,
                                        torch.Generator().manual_seed(b), dev,
                                        batch=size)))
 
-    _staged(models, statics, *batches[0])                      # warm-up
-    stages = [_staged(models, statics, *batch) for batch in batches[1:]]
-    med = {k: float(np.median([s[k] for s in stages])) for k in stages[0]}
-    unit = f"batch of {size}" if args.batch else "pair"
-    for k, v in med.items():
-        print(f"stage {k}: {v:.2f} ms a {unit} (median of {len(stages)})")
+    def register(srcs, tgts, draws):
+        if args.batch:
+            return reg.register_batch(cfg, srcs, tgts, models, draws=draws,
+                                      is_aligned=False, device=dev)
+        return reg.register_pair(cfg, srcs[0], tgts[0], models,
+                                 draws=type(draws)(*(x[0] for x in draws)),
+                                 is_aligned=False, device=dev)
+
+    def serve(batches):
+        return reg.register_pairs_batched(
+            cfg, [s for b in batches for s in b[0]],
+            [t for b in batches for t in b[1]], models, batch_size=size,
+            draws=[(b[2], b[2]) for b in batches], is_aligned=False,
+            device=dev)
+
+    if args.batch:
+        serve(batches[:1])                                     # warm-up
+        with tracing():
+            serve(batches[1:])
+            torch.cuda.synchronize()
+    else:
+        register(*batches[0])                                  # warm-up
+        with tracing():
+            for batch in batches[1:]:
+                register(*batch)
+                torch.cuda.synchronize()
+    records = spans()
+    tree = _span_tree(records)
+    def ms(x):
+        return "-" if x is None else f"{x:.2f} ms"
+
+    for depth, r in tree:
+        print(f"{'  ' * depth}{r.name} ({r.pairs or '-'} pairs): stream "
+              f"{ms(r.stream_ms)}, host {ms(r.host_ms)}")
+    table = _span_table(records)
+    for name, row in table.items():
+        print(f"span {name}: {row['count']}x, stream {ms(row['stream_ms'])},"
+              f" host {ms(row['host_ms'])} a pair")
 
     all_scales = tuple(range(statics.num_scales))
-    src, tgt, draws = batches[1]
+    srcs, tgts, draws = batches[1]
+    src, tgt = reg.stack_clouds(srcs), reg.stack_clouds(tgts)
+    unit = f"batch of {size}" if args.batch else "pair"
     result = {
         "device": torch.cuda.get_device_name(0), "smi": smi,
         "snapshot": os.path.normpath(args.snapshot), "dataset": args.dataset,
         "desc_mode": statics.desc_mode, "fused_conv": statics.fused_conv,
-        "batch": args.batch, "stages_ms": med,
+        "batch": args.batch, "spans": table,
+        "span_tree": [[depth, r.name, r.pairs, r.stream_ms, r.host_ms]
+                      for depth, r in tree],
     }
     if statics.clutter_filter:
         xyz = torch.cat([src.xyz, tgt.xyz])
@@ -198,11 +290,8 @@ def main() -> int:
             result[label.replace(" ", "_")] = numbers
     else:
         # the entry point, its set-up and stacking included
-        src1, tgt1 = (reg.Cloud(*(x[0] for x in c)) for c in (src, tgt))
-        draws1 = type(draws)(*(x[0] for x in draws))
-        numbers, prof = _profiled(
-            lambda: reg.register_pair(cfg, src1, tgt1, models, draws=draws1,
-                                      is_aligned=False, device=dev), unit, 1)
+        numbers, prof = _profiled(lambda: register(srcs, tgts, draws), unit,
+                                  1)
         result.update(numbers)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
