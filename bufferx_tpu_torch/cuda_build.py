@@ -46,14 +46,15 @@ def _nvcc() -> str:
 class CudaKernel:
     """One CUDA source, its C entry point and its launch count.
 
-    ``replaces`` names the Pallas kernel (file:line) it stands in for;
+    ``replaces`` names the Pallas kernel (file:line) it stands in for, or is
+    None for a kernel that stands in for none;
     ``argtypes`` are the entry's ctypes argument types before the stream.
     ``launches`` counts successful launches by :meth:`launch`, and nothing
     else: reset it with :func:`reset_launch_counts`.
     """
 
-    def __init__(self, name: str, source: str, replaces: str, entry: str,
-                 argtypes: list):
+    def __init__(self, name: str, source: str, replaces: str | None,
+                 entry: str, argtypes: list):
         self.name = name
         self.source = source
         self.replaces = replaces
@@ -138,6 +139,7 @@ def build_all() -> float:
     # importing the kernel modules registers their kernels
     from bufferx_tpu_torch.geometry import spt_pallas  # noqa: F401
     from bufferx_tpu_torch.kernels import (  # noqa: F401
+        conv_epilogue,
         conv_pallas,
         fps,
         strat_pallas,

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bufferx_tpu_torch.kernels.conv_epilogue import conv_epilogue, to_form
 from bufferx_tpu_torch.models.layers import ConvBNRelu
 
 __all__ = ["equi_match_scores", "CostVolume"]
@@ -41,17 +42,17 @@ class FactoredCostStem(ConvBNRelu):
     """Layer 1 of the cost net in factored (Toeplitz) form; ``weight`` is
     the direct 3D conv's [out, in, ds, dke, dl] kernel."""
 
+    serving_rounds_bn = False      # float32 on; layer 1 rounds it
+
     def __init__(self, azi_n: int, in_features: int = 32, features: int = 32,
                  compute_dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__(in_features, features, (3, 3, 3),
                          compute_dtype=compute_dtype, bn_group=bn_group)
         self.azi_n = azi_n
 
-    def forward(self, des1: torch.Tensor, des2: torch.Tensor,
-                bn_stats: dict | None = None) -> torch.Tensor:
-        dt = self.compute_dtype
-        L = self.azi_n
-        k = self.weight.to(dt)                        # [O, I, ds, dke, dl]
+    def conv_weights(self) -> tuple:
+        """(W1 [O, I, 3, 5], W2 [O, I, 3, 3]) in the compute dtype."""
+        k = self.weight.to(self.compute_dtype)        # [O, I, ds, dke, dl]
         # W1[:, :, dke, dmi] = sum_ds k[:, :, ds, dke, ds + dmi - 2]
         w1 = []
         for dmi in range(5):
@@ -63,16 +64,30 @@ class FactoredCostStem(ConvBNRelu):
             w1.append(acc)
         w1 = torch.stack(w1, dim=-1)                  # [O, I, 3, 5]
         w2 = k[:, :, 0] + k[:, :, 1] + k[:, :, 2]     # [O, I, 3, 3]
+        return w1, w2
+
+    def forward(self, des1: torch.Tensor, des2: torch.Tensor,
+                bn_stats: dict | None = None,
+                out: str = "f32") -> torch.Tensor:
+        dt = self.compute_dtype
+        L = self.azi_n
+        serve = self.kernel_serves(des1, des2)
+        (w1, w2), const = (self.serving_state() if serve
+                           else (self.conv_weights(), None))
         d1 = des1.to(dt)                              # [B, C, Ke, L]
         a_in = torch.cat([d1[..., -2:], d1, d1[..., :2]], dim=-1)
         A = F.conv2d(a_in, w1)                        # [B, O, Ke-2, L]
         C2d = F.conv2d(des2.to(dt), w2)               # [B, O, Ke-2, L-2]
+        if serve:
+            return conv_epilogue(A.contiguous(), const, out,
+                                 c2d=C2d.contiguous())
         recon = torch.stack(
             [torch.roll(A, s, dims=3)[..., : L - 2] for s in range(L - 2)],
             dim=2,
         )                                             # [B, O, S, Ke-2, L-2]
         x = recon - C2d[:, :, None] + self.bias.to(dt).view(1, -1, 1, 1, 1)
-        return torch.relu(self.norm(x, bn_stats))          # f32, both modes
+        y = torch.relu(self.norm(x, bn_stats))        # f32, both modes
+        return to_form(y, out, dt)
 
 
 class CostVolume(nn.Module):
@@ -103,9 +118,10 @@ class CostVolume(nn.Module):
 
     def forward(self, des1: torch.Tensor, des2: torch.Tensor,
                 bn_stats: dict | None = None) -> torch.Tensor:
-        x = self.stem(des1, des2, bn_stats)
-        for layer in self.layers:
-            x = layer(x, bn_stats)
+        x = self.stem(des1, des2, bn_stats, out="bf16")
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            x = layer(x, bn_stats, out="f32" if i == last else "bf16")
         logits = x.reshape(x.shape[0], self.azi_n)
         prob = torch.softmax(logits, dim=-1)
         bins = torch.arange(self.azi_n, dtype=prob.dtype, device=prob.device)

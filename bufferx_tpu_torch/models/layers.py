@@ -11,6 +11,20 @@ mode: the conv and its bias add run in the compute dtype, BatchNorm (from
 running statistics, eps 1e-5) runs in float32 on that result and rounds
 back to the compute dtype, and the output is float32.
 
+Each layer hands its consumer the form it reads (``out``: "f32", "bf16",
+"pad2d", and for the stems "pad3d" and "amax"; the forms are those of
+:mod:`bufferx_tpu_torch.kernels.conv_epilogue`): a cylindrical layer writes
+the next one's padded input, a cost-net layer the next one's bf16 input. In
+serving on the card (a CUDA input, eval mode, no gradient needed, bf16
+compute) one kernel applies the whole epilogue and writes that form; anywhere
+else the eager chain runs, op for op as before, and its output is put in the
+same form by the same ops that the consumer used to apply. Both give the same
+bits. An eval-mode forward on the card that takes the eager chain (a gradient
+needed, or another compute dtype) is counted
+(``conv_epilogue.eager_serving_forwards``). The bf16
+weights and the epilogue's per-channel constants are made once per state of
+the layer's parameters and buffers (:meth:`ConvBNRelu.serving_state`).
+
 In training mode (``module.train()``, the JAX layers' ``train=True``)
 BatchNorm normalizes with the batch's statistics in float32, as flax's
 ``BatchNorm`` with ``use_fast_variance=True`` computes them: the mean and
@@ -30,12 +44,22 @@ that average to every rank.
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bufferx_tpu_torch.kernels.conv_epilogue import (
+    EpilogueConstants,
+    at_least_f32,
+    conv_epilogue,
+    count_eager_serving,
+    pad_cyl_2d,
+    pad_cyl_3d,
+    to_form,
+)
 from bufferx_tpu_torch.kernels.conv_pallas import (
     cyl_conv_stack,
     fold_cyl_stack,
@@ -50,32 +74,14 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 
 
-def _wrap_last(x: torch.Tensor, p: int) -> torch.Tensor:
-    return torch.cat([x[..., -p:], x, x[..., :p]], dim=-1)
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
 
 
-def pad_cyl_2d(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x [K, C, ele, azi]: wrap azimuth, zero-pad elevation for odd k."""
-    p = (k - 1) // 2
-    if p == 0:
-        return x
-    return F.pad(_wrap_last(x, p), (0, 0, p, p))
-
-
-def pad_cyl_3d(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x [K, C, rad, ele, azi]: wrap azimuth + zero elevation; the radial
-    axis stays unpadded (the first conv collapses rad 3 -> 1)."""
-    p = (k - 1) // 2
-    if p == 0:
-        return x
-    return F.pad(_wrap_last(x, p), (0, 0, p, p, 0, 0))
-
-
-def at_least_f32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in float32, or as it is when wider (flax computes BatchNorm in
-    at least float32; a float64 model stays float64, which the tests use as
-    a reference)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+def bn_multiplier(var: torch.Tensor, scale=None) -> torch.Tensor:
+    """BatchNorm's per-channel factor ``rsqrt(var + eps) (* scale)``."""
+    mul = torch.rsqrt(var + BN_EPS)
+    return mul if scale is None else mul * scale
 
 
 def batch_norm(x: torch.Tensor, mean, var, scale=None, bias=None,
@@ -84,9 +90,7 @@ def batch_norm(x: torch.Tensor, mean, var, scale=None, bias=None,
     of operations."""
     shape = [1] * x.ndim
     shape[channel_dim] = -1
-    mul = torch.rsqrt(var + BN_EPS)
-    if scale is not None:
-        mul = mul * scale
+    mul = bn_multiplier(var, scale)
     y = (at_least_f32(x) - mean.view(shape)) * mul.view(shape)
     if bias is not None:
         y = y + bias.view(shape)
@@ -132,7 +136,12 @@ class ConvBNRelu(nn.Module):
     statistics in the buffers ``bn_mean``/``bn_var`` and, when affine,
     ``bn_scale``/``bn_bias``. In training mode BatchNorm uses the batch's
     statistics, shared over ``bn_group``'s ranks when it is set, and records
-    them in ``bn_stats`` (see the module notes)."""
+    them in ``bn_stats`` (see the module notes). ``out`` is the consumer's
+    form."""
+
+    # round to the compute dtype after BatchNorm in serving (the factored
+    # cost stem hands float32 on)
+    serving_rounds_bn = True
 
     def __init__(self, in_features: int, features: int, kernel: Sequence[int],
                  use_bn: bool = True, use_relu: bool = True,
@@ -153,6 +162,49 @@ class ConvBNRelu(nn.Module):
                 self.bn_scale = nn.Parameter(torch.ones(features))
                 self.bn_bias = nn.Parameter(torch.zeros(features))
         self.bn_affine = bn_affine
+        self._serving = None
+
+    def conv_weights(self) -> tuple:
+        """The weights the layer's conv runs with, in the compute dtype."""
+        return (self.weight.to(self.compute_dtype),)
+
+    def serving_state(self) -> tuple:
+        """(:meth:`conv_weights`, :class:`EpilogueConstants`) for the serving
+        kernel: the bias in the compute dtype, BatchNorm's running mean, its
+        ``mul`` by :func:`batch_norm`'s own ops and the affine bias. Made once
+        per state: a parameter or buffer that is replaced or edited in place
+        (``load_state_dict`` copies in place) makes them anew; an edit through
+        ``.data`` bypasses the version counter and is not seen."""
+        state = [*self._parameters.values(), *self._buffers.values()]
+        key = [(id(t), t.data_ptr(), t._version) for t in state]
+        if self._serving is None or self._serving[0] != key:
+            with torch.no_grad():
+                const = EpilogueConstants(
+                    self.bias.to(self.compute_dtype), relu=self.use_relu,
+                    round_bn=self.serving_rounds_bn)
+                if self.use_bn:
+                    affine = self.bn_affine
+                    const = replace(
+                        const, mean=self.bn_mean.detach(),
+                        mul=bn_multiplier(self.bn_var,
+                                          self.bn_scale if affine else None),
+                        bn_bias=self.bn_bias.detach() if affine else None)
+                self._serving = (key, self.conv_weights(), const)
+        return self._serving[1:]
+
+    def kernel_serves(self, *xs: torch.Tensor) -> bool:
+        """Whether the serving kernel runs this forward on inputs ``xs``: on
+        the card, in eval mode, with no gradient needed, in bf16. An
+        eval-mode forward on the card that it does not run is counted."""
+        if not _on_card(xs[0]) or self.training:
+            return False
+        if self.compute_dtype != torch.bfloat16 or (
+                torch.is_grad_enabled() and any(
+                    t.requires_grad
+                    for t in (*xs, *self._parameters.values()))):
+            count_eager_serving()
+            return False
+        return True
 
     def norm(self, y: torch.Tensor, bn_stats: dict | None = None,
              channel_dim: int = 1) -> torch.Tensor:
@@ -168,18 +220,22 @@ class ConvBNRelu(nn.Module):
             bn_stats[self] = (mean, var)
         return batch_norm(y, mean, var, scale, bias, channel_dim)
 
-    def forward(self, x: torch.Tensor,
-                bn_stats: dict | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_stats: dict | None = None,
+                out: str = "f32") -> torch.Tensor:
         dt = self.compute_dtype
         conv = F.conv2d if len(self.kernel) == 2 else F.conv3d
-        y = conv(x.to(dt), self.weight.to(dt))
+        if self.kernel_serves(x):
+            (w,), const = self.serving_state()
+            return conv_epilogue(conv(x.to(dt), w), const, out)
+        (w,) = self.conv_weights()
+        y = conv(x.to(dt), w)
         y = y + self.bias.to(dt).view((1, -1) + (1,) * len(self.kernel))
         if self.use_bn:
             y = self.norm(y, bn_stats)
             if not self.training:     # serving keeps the compute dtype
                 y = y.to(dt)
         y = at_least_f32(y)
-        return torch.relu(y) if self.use_relu else y
+        return to_form(torch.relu(y) if self.use_relu else y, out, dt)
 
 
 class CylindricalConvNet(nn.Module):
@@ -206,11 +262,19 @@ class CylindricalConvNet(nn.Module):
                                  use_relu=False, compute_dtype=compute_dtype))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor,
-                bn_stats: dict | None = None) -> torch.Tensor:
-        x = self.layers[0](pad_cyl_3d(x, 3), bn_stats)[:, :, 0]  # rad 3 -> 1
-        for layer in self.layers[1:]:
-            x = layer(pad_cyl_2d(x, 3), bn_stats)
+    def forward(self, x: torch.Tensor, bn_stats: dict | None = None,
+                padded: bool = False) -> torch.Tensor:
+        """``padded``: ``x`` is already layer 0's input, ``pad_cyl_3d(x, 3)``
+        in the compute dtype (a stem's "pad3d" form). Each layer writes the
+        next one's padded input; layer 0 collapses rad 3 -> 1. On the card
+        the layers run channels-last, the layout the serving kernel pads."""
+        if not padded:
+            x = pad_cyl_3d(x, 3)
+            if _on_card(x):
+                x = x.contiguous(memory_format=torch.channels_last_3d)
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            x = layer(x, bn_stats, out="f32" if i == last else "pad2d")
         return x
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from bufferx_tpu_torch.kernels.conv_epilogue import conv_epilogue, to_form
 from bufferx_tpu_torch.models.layers import (
     ConvBNRelu,
     CylindricalConvNet,
@@ -41,22 +42,31 @@ def safe_unit(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tenso
 class PointwiseStem(ConvBNRelu):
     """1x1 conv + affine BN + ReLU on channels-last input [..., C_in],
     returning [..., 16] (the JAX ``ConvBNRelu(16, (1, 1), bn_affine=True)``
-    stem of the sampled mode)."""
+    stem of the sampled mode), or the form ``out`` of it: "amax" (the max
+    over the samples, [K, G, 16]) or "pad3d" (the backbone's padded input,
+    ``grid`` = (rad, ele, azi))."""
 
     def __init__(self, features: int = 16, in_features: int = 3,
                  compute_dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__(in_features, features, (1, 1), bn_affine=True,
                          compute_dtype=compute_dtype, bn_group=bn_group)
 
-    def forward(self, x: torch.Tensor,
-                bn_stats: dict | None = None) -> torch.Tensor:
+    def conv_weights(self) -> tuple:
+        return (self.weight[:, :, 0, 0].t().to(self.compute_dtype),)  # [C_in, 16]
+
+    def forward(self, x: torch.Tensor, bn_stats: dict | None = None,
+                out: str = "f32", grid: tuple | None = None) -> torch.Tensor:
         dt = self.compute_dtype
-        w = self.weight[:, :, 0, 0].t().to(dt)                 # [C_in, 16]
+        if self.kernel_serves(x):
+            (w,), const = self.serving_state()
+            return conv_epilogue(torch.matmul(x.to(dt), w).contiguous(),
+                                 const, out, channel_dim=-1, grid=grid)
+        (w,) = self.conv_weights()
         y = torch.matmul(x.to(dt), w) + self.bias.to(dt)
         y = self.norm(y, bn_stats, channel_dim=-1)
         if not self.training:
             y = y.to(dt)
-        return torch.relu(at_least_f32(y))
+        return to_form(torch.relu(at_least_f32(y)), out, dt, grid)
 
 
 class MomentsMajorStem(PointwiseStem):
@@ -68,9 +78,9 @@ class MomentsMajorStem(PointwiseStem):
                  compute_dtype: torch.dtype = torch.float32, bn_group=None):
         super().__init__(features, in_features, compute_dtype, bn_group)
 
-    def forward(self, x_mm: torch.Tensor,
-                bn_stats: dict | None = None) -> torch.Tensor:
-        return super().forward(x_mm.transpose(1, 2), bn_stats)
+    def forward(self, x_mm: torch.Tensor, bn_stats: dict | None = None,
+                out: str = "f32", grid: tuple | None = None) -> torch.Tensor:
+        return super().forward(x_mm.transpose(1, 2), bn_stats, out, grid)
 
 
 class MiniSpinNet(nn.Module):
@@ -113,20 +123,27 @@ class MiniSpinNet(nn.Module):
     def forward(self, x_in: torch.Tensor,
                 bn_stats: dict | None = None) -> dict:
         k = x_in.shape[0]
+        grid = (self.rad_n, self.ele_n, self.azi_n)
         g = self.rad_n * self.ele_n * self.azi_n
+        # the cuDNN backbone reads its padded input from the moments stem
+        padded = self.mode == "moments" and not self.fused
         if self.mode == "moments":
             if tuple(x_in.shape[1:]) != (10, g):
                 raise ValueError(f"expected moments-major [K, 10, {g}], got "
                                  f"{tuple(x_in.shape)}")
-            x = self.stem(x_in, bn_stats)                      # [K, G, 16]
+            x = self.stem(x_in, bn_stats, out="pad3d" if padded else "f32",
+                          grid=grid)
         else:
             if x_in.ndim != 4 or x_in.shape[1] != g or x_in.shape[3] != 3:
                 raise ValueError(f"expected SPT samples [K, {g}, ns, 3], got "
                                  f"{tuple(x_in.shape)}")
-            x = torch.amax(self.stem(x_in, bn_stats), dim=2)   # [K, G, 16]
-        x = x.reshape(k, self.rad_n, self.ele_n, self.azi_n, 16)
-        x = self.backbone(x.permute(0, 4, 1, 2, 3), bn_stats)  # [K, 32, e, a]
-        w = self.att_gate(self.att_hidden(x, bn_stats), bn_stats)
+            x = self.stem(x_in, bn_stats, out="amax")          # [K, G, 16]
+        if padded:                            # [K, 16, rad, ele + 2, azi + 2]
+            x = self.backbone(x, bn_stats, padded=True)
+        else:
+            x = x.reshape(k, *grid, 16).permute(0, 4, 1, 2, 3)
+            x = self.backbone(x, bn_stats)                     # [K, 32, e, a]
+        w = self.att_gate(self.att_hidden(x, bn_stats, out="bf16"), bn_stats)
         if self.pool == "softmax":                             # w: logits
             att = torch.softmax(w.reshape(k, -1), dim=-1).reshape(w.shape)
             f = torch.sum(x * att, dim=(2, 3))                 # [K, 32]

@@ -22,6 +22,10 @@ fused conv stack. It prints:
   kernel name (top 25), the device time of every kernel, copy and fill,
   the wall time, and the device's idle share: 1 - the union of the device
   operations' intervals over the profiled window;
+- the serving epilogue's launches a pair (``KERNELS["conv_epilogue"]``)
+  and the conv layers' eval-mode forwards on the card that took the eager
+  chain a pair (``conv_epilogue.eager_serving_forwards``, 0 on the main
+  path), over the traced pairs;
 - one JSON line with those numbers.
 
 ``--batch B`` serves ``--pairs`` batches of B pairs after the warm-up
@@ -53,7 +57,9 @@ import numpy as np
 import torch
 
 from bufferx_tpu_torch.config import make_cfg
+from bufferx_tpu_torch.cuda_build import KERNELS, reset_launch_counts
 from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
+from bufferx_tpu_torch.kernels import conv_epilogue
 from bufferx_tpu_torch.kernels.density import density_inlier_mask
 from bufferx_tpu_torch.pipeline import registration as reg
 from bufferx_tpu_torch.tools.weights import load_snapshot, load_snapshot_config
@@ -172,6 +178,12 @@ def _span_table(records: list) -> dict:
     return table
 
 
+def _reset_counts() -> int:
+    """Zero the kernels' launch counts; the eager-served count as it is."""
+    reset_launch_counts()
+    return conv_epilogue.eager_serving_forwards
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pairs", type=int, default=3)
@@ -233,15 +245,25 @@ def main() -> int:
 
     if args.batch:
         serve(batches[:1])                                     # warm-up
+        counts = _reset_counts()
         with tracing():
             serve(batches[1:])
             torch.cuda.synchronize()
     else:
         register(*batches[0])                                  # warm-up
+        counts = _reset_counts()
         with tracing():
             for batch in batches[1:]:
                 register(*batch)
                 torch.cuda.synchronize()
+    traced_pairs = args.pairs * size
+    epilogue = {"conv_epilogue_launches_per_pair":
+                KERNELS["conv_epilogue"].launches / traced_pairs,
+                "eager_served_per_pair":
+                (conv_epilogue.eager_serving_forwards - counts) / traced_pairs}
+    print(f"conv epilogue: {epilogue['conv_epilogue_launches_per_pair']:g} "
+          f"launches a pair, {epilogue['eager_served_per_pair']:g} conv "
+          "forwards a pair served by the eager chain", flush=True)
     records = spans()
     tree = _span_tree(records)
     def ms(x):
@@ -263,7 +285,7 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0), "smi": smi,
         "snapshot": os.path.normpath(args.snapshot), "dataset": args.dataset,
         "desc_mode": statics.desc_mode, "fused_conv": statics.fused_conv,
-        "batch": args.batch, "spans": table,
+        "batch": args.batch, "spans": table, **epilogue,
         "span_tree": [[depth, r.name, r.pairs, r.stream_ms, r.host_ms]
                       for depth, r in tree],
     }

@@ -35,6 +35,19 @@ Phases (any failure raises and exits non-zero):
    order, so an activation near a bf16 rounding boundary rounds the other
    way and later layers carry the step); kernel, plain and
    library-yardstick times (median of CUDA-event runs) and the bound;
+3b. the conv layers' serving epilogue (``kernels/conv_epilogue.py``) on
+   one scale's pass (``_scale_candidates``) of the batch of 8 (24000
+   patches, 12000 matches) and of the first pair (3000, 1500) on the
+   moments path, and of 2 pairs on the sampled + fused path (one chunk of
+   6000 patches, 3000 matches): every layer's kernel output ``torch.equal``
+   to the plain version on the layer's real input, kernel and plain ms
+   (medians of CUDA-event runs, summed over a net's layers) beside the
+   bound by bytes; the nets' ``desc``, ``equi`` and ``ind`` through the
+   kernel equal to the plain route's (the plain version in the kernel's
+   place) and to the eager chain's (the layers' own ops, as they run off
+   the card); 21 launches a pass (11 the descriptor net, 10 the
+   cost volume; 3 + 10 on the sampled path) and no conv forward served by
+   the eager chain;
 4. the main path: ``register_pair`` with the ``hard_moments_r4ft2`` weights
    ("moments" descriptor) at full width (30208 points, 1500 keypoints, 2000
    probes, 512-point patches, 3 scales, 8192 hypotheses) on 4 seeded
@@ -260,20 +273,41 @@ JAX_DATASET_SAMPLED_SUCCESSES = {1024: 2, 128: 2}
 #       --pairs-per-cell 8 --batch 1
 # (the block-query run here must reach it less 2)
 JAX_DATASET_GATE_SUCCESSES = 17
+
+
+def with_epilogue(want: dict, chunks: int = 1) -> dict:
+    """``want``, the other kernels' expected launches, with the conv layers'
+    serving epilogue's: one launch a conv layer of every serving pass of the
+    nets. A moments pass (one moment pooling) runs the descriptor net's 11
+    layers and the cost volume's 10; a sampled pass (one cell query) runs
+    the cost volume and, for each sub-batch of patches, the stem and the
+    attention head around the fused conv stack (3, one conv stack launch
+    each) or, with the cuDNN backbone, 11 layers (``chunks`` sub-batches a
+    pass)."""
+    passes = want.get("cell_query", 0)
+    sampled_desc = 3 * want.get("conv_stack", 0) or 11 * chunks * passes
+    return dict(want, conv_epilogue=21 * want.get("moments", 0)
+                + 10 * passes + sampled_desc)
+
+
 # launches per pair: FPS for both clouds in one launch, the stratified query
 # for both clouds and all scales in one launch, then per scale moment pooling
 # ("moments"), or the cell query and the fused conv stack ("sampled" with
-# fused_conv); a batch run launches what one pair does, but the conv stack
-# once for each sub-batch of patches the descriptor net takes
+# fused_conv), and the serving epilogue for each conv layer; a batch run
+# launches what one pair does, but the conv stack once for each sub-batch
+# of patches the descriptor net takes
 EXPECTED_PER_PAIR = {
-    "moments": {"fps": 1, "strat": 1, "moments": 3, "cell_query": 0,
-                "conv_stack": 0},
-    "sampled": {"fps": 1, "strat": 1, "moments": 0, "cell_query": 3,
-                "conv_stack": 3},
+    "moments": with_epilogue({"fps": 1, "strat": 1, "moments": 3,
+                              "cell_query": 0, "conv_stack": 0}),
+    "sampled": with_epilogue({"fps": 1, "strat": 1, "moments": 0,
+                              "cell_query": 3, "conv_stack": 3}),
 }
 # the path whose run gives a kernel's "launches" in the kernels line
 PATH_OF = {"fps": "moments", "strat": "moments", "moments": "moments",
-           "cell_query": "sampled", "conv_stack": "sampled"}
+           "cell_query": "sampled", "conv_stack": "sampled",
+           "conv_epilogue": "moments"}
+# launches a timing of the serving epilogue (phase 3b)
+EPILOGUE_REPS = 10
 # published H100 SXM peaks: HBM bytes/s, float32 outside the tensor
 # cores and dense bf16 on the tensor cores, flop/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -479,6 +513,7 @@ def run_batched(torch, reg, se3, cuda_build, label, cfg, models, pairs,
     for n, per_scale in per_scale_kernels.items():
         want[n] = sum(per_scale(len(idx)) for idx in batches) + \
             num_scales * sum(per_scale(len(r)) for r in redone if r)
+    want = with_epilogue(want)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want} "
                              f"({len(batches)} batches, {redo_batches} redone)")
@@ -556,6 +591,7 @@ def run_gate(torch, reg, cuda_build, models, dev):
     want = {n: 0 for n in launches}
     want.update(fps=n_batches, strat=n_batches,
                 moments=n_batches * statics.num_scales)
+    want = with_epilogue(want)
     if launches != want:
         raise AssertionError(f"gate: launches {launches}, expected {want}")
     successes = sum(sum(r["successes"]) for r in rows)
@@ -1102,7 +1138,7 @@ def run_dataset_path(torch, cuda_build, reg, se3, dev):
             seconds = time.perf_counter() - t0
             got = {k: kk.launches for k, kk in cuda_build.KERNELS.items()}
             launches[f"dataset_{label}"] = got
-            want = dict({k: 0 for k in got}, **want)
+            want = with_epilogue(dict({k: 0 for k in got}, **want))
             successes = sum(r["success"] for r in summary["rows"])
             cli[label] = dict(
                 checkpoint=os.path.basename(snap), flags=" ".join(flags),
@@ -1273,6 +1309,7 @@ def run_dataset_path(torch, cuda_build, reg, se3, dev):
                         cell_query=3 * nb,
                         conv_stack=3 * nb * -(-2 * BATCH * st.num_fps
                                               // reg.SAMPLED_DESC_CHUNK))
+            want = with_epilogue(want)
             if got != want:
                 raise AssertionError(f"dataset {label}: launches {got}, "
                                      f"expected {want}")
@@ -1922,9 +1959,10 @@ IPHONE_TIMED_FRAMES = 50
 IPHONE_GRID = dict(origin=(-1.5, -1.5, 0.5), dims=(500, 500, 500),
                    voxel=0.006)
 # (d): tools/bench_scaling.py's batch run at world size 1 (4 pairs, every
-# scale, the sampled path with the cuDNN backbone)
-BENCH_LAUNCHES = {"fps": 1, "strat": 1, "moments": 0, "cell_query": 3,
-                  "conv_stack": 0}
+# scale, the sampled path with the cuDNN backbone; 12000 patches a pass, two
+# sub-batches of the descriptor net)
+BENCH_LAUNCHES = with_epilogue({"fps": 1, "strat": 1, "moments": 0,
+                                "cell_query": 3, "conv_stack": 0}, chunks=2)
 
 
 def jax_gt_log(layout, rows, poses):
@@ -2195,7 +2233,8 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
             seconds = time.perf_counter() - t0
             got = {kk: kr.launches for kk, kr in cuda_build.KERNELS.items()}
             launches[f"iphone_{label}"] = got
-            want = dict({kk: 0 for kk in got}, fps=n, strat=n, moments=3 * n)
+            want = with_epilogue(dict({kk: 0 for kk in got}, fps=n, strat=n,
+                                      moments=3 * n))
             rows = summary["rows"]
             successes = sum(r["success"] for r in rows)
             jax_count = JAX_IPHONE["successes"][IPHONE_LOGS[label]]
@@ -2324,7 +2363,8 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
             f"{r['line']} ({r['pairs']} pairs in {r['seconds'] * 1e3:.1f} ms "
             f"a run), {bench_s:.1f} s in all, launches a run "
             f"{r['launches']}")
-        if r["line"]["mesh"] != 1 or r["launches"] != BENCH_LAUNCHES:
+        if r["line"]["mesh"] != 1 or \
+                r["launches"] != BENCH_LAUNCHES:
             raise AssertionError(f"offline (d): {r['line']}, launches "
                                  f"{r['launches']}, expected "
                                  f"{BENCH_LAUNCHES} at world size 1")
@@ -2353,6 +2393,208 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
     return launches, measured, entries
 
 
+# ---- phase 3b: the conv layers' serving epilogue ---------------------------
+
+def run_conv_epilogue(torch, cuda_build, reg, dev, statics, models, pre8,
+                      draws8, pair, statics_s, models_s, pairs_s):
+    """Phase 3b (module notes): the serving epilogue against its plain
+    version on every layer of one scale's pass, at the batch of 8 and one
+    pair on the moments path and two pairs on the sampled + fused path;
+    the nets' outputs through the kernel against the plain route and the
+    eager chain; the launches of a pass. Returns (launches by pass, kernel
+    entries, whose launches are those of phase 4's path)."""
+    import contextlib
+
+    import torch.nn.functional as F
+
+    from bufferx_tpu_torch.kernels import conv_epilogue as ce
+    from bufferx_tpu_torch.models import heads, layers, spinnet
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+
+    bf16 = torch.bfloat16
+    rows, owner, case = {}, {}, {"name": None}
+
+    def conv_out(layer, args, kwargs):
+        """The layer's conv (or matmul) output as its forward makes it."""
+        ws, _const = layer.serving_state()
+        kw = {}
+        if isinstance(layer, heads.FactoredCostStem):
+            d1 = args[0].to(bf16)
+            a_in = torch.cat([d1[..., -2:], d1, d1[..., :2]], dim=-1)
+            return (F.conv2d(a_in, ws[0]).contiguous(),
+                    F.conv2d(args[1].to(bf16), ws[1]).contiguous(), kw)
+        if isinstance(layer, spinnet.PointwiseStem):
+            x = args[0]
+            if isinstance(layer, spinnet.MomentsMajorStem):
+                x = x.transpose(1, 2)
+            kw = dict(channel_dim=-1, grid=kwargs.get("grid"))
+            return torch.matmul(x.to(bf16), ws[0]).contiguous(), None, kw
+        conv = F.conv2d if len(layer.kernel) == 2 else F.conv3d
+        return conv(args[0].to(bf16), ws[0]), None, kw
+
+    def check(layer, args, kwargs):
+        if case["name"] is None:
+            return
+        out = kwargs.get("out", "f32")
+        y, c2d, kw = conv_out(layer, args, kwargs)
+        const = layer.serving_state()[1]
+
+        def kernel():
+            return ce.conv_epilogue_cuda(y, const, out, c2d=c2d, **kw)
+
+        def plain():
+            return ce.conv_epilogue_plain(y, const, out, c2d=c2d, **kw)
+
+        got, want = kernel(), plain()
+        what = f"{type(layer).__name__} {out} {list(y.shape)}"
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            bad = int((got.float() != want.float()).sum())
+            raise AssertionError(f"conv_epilogue, {case['name']}, {what}: "
+                                 f"{bad} of {want.numel()} entries differ "
+                                 "from the plain version")
+        key = (case["name"], owner[layer], args[0].shape[0])
+        row = rows.setdefault(key, dict(layers=[], ms=0.0, plain_ms=0.0,
+                                        nbytes=0))
+        nbytes = (y.numel() + (0 if c2d is None else c2d.numel())) * 2 + \
+            got.numel() * got.element_size()
+        # launches back to back, so that the wrapper's host time overlaps
+        # the card's work where a launch takes longer than it
+        ms = time_ms(lambda: [kernel() for _ in range(EPILOGUE_REPS)], 3) / \
+            EPILOGUE_REPS
+        row["layers"].append(f"{what} -> {list(got.shape)}: {ms:.4f} ms, "
+                             f"bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f}")
+        row["ms"] += ms
+        row["plain_ms"] += time_ms(plain, 3)
+        row["nbytes"] += nbytes
+
+    hooks = []
+    for net_name, mdl in (("moments", models), ("sampled", models_s)):
+        for part in ("desc", "pose"):
+            for m in getattr(mdl, part).modules():
+                if isinstance(m, layers.ConvBNRelu):
+                    owner[m] = part
+                    hooks.append(m.register_forward_pre_hook(
+                        check, with_kwargs=True))
+
+    def add_entries(label, path, match):
+        for (name, part, n), row in rows.items():
+            if name != label:
+                continue
+            entries.append(dict(
+                name="conv_epilogue", path=path,
+                case=f"{label}, {part} net, {n} "
+                     f"{'patches' if part == 'desc' else 'matches'}",
+                match="every layer torch.equal to the plain version; " + match,
+                max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
+                bound=(row["nbytes"] / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                library_ms=None, shapes="; ".join(row["layers"]),
+                extra=dict(layers=len(row["layers"]), bytes=row["nbytes"])))
+            log(f"conv_epilogue, {entries[-1]['case']}: "
+                f"{len(row['layers'])} layers, kernel {row['ms']:.3f} ms, "
+                f"plain {row['plain_ms']:.3f} ms, bound "
+                f"{entries[-1]['bound'][0]:.4f} ms (bytes)")
+
+    @contextlib.contextmanager
+    def plain_route():
+        """The nets with the plain version in the kernel's place."""
+        mods = (layers, spinnet, heads)
+        saved = [m.conv_epilogue for m in mods]
+        for m in mods:
+            m.conv_epilogue = ce.conv_epilogue_plain
+        try:
+            yield
+        finally:
+            for m, f in zip(mods, saved):
+                m.conv_epilogue = f
+
+    @contextlib.contextmanager
+    def eager_route():
+        """The nets as the layers run them off the card: the eager chain."""
+        on_card = layers._on_card
+        layers._on_card = lambda _t: False
+        try:
+            yield
+        finally:
+            layers._on_card = on_card
+
+    def capture(net, box, name):
+        return net.register_forward_pre_hook(
+            lambda _m, a: box.setdefault(name, a))
+
+    def stack(clouds):
+        return reg.stack_clouds(list(clouds))
+
+    draws1 = reg.make_draws(statics, torch.Generator().manual_seed(1), dev,
+                            batch=1)
+    pre1 = reg._precompute(statics, stack([pair[0]]), stack([pair[1]]),
+                           draws1, (0,))
+    draws_s = reg.make_draws(statics_s, torch.Generator().manual_seed(2), dev,
+                             batch=len(pairs_s))
+    pre_s = reg._precompute(statics_s, stack(p[0] for p in pairs_s),
+                            stack(p[1] for p in pairs_s), draws_s, (0,))
+    runs = [("moments B=8", models, statics, pre8, draws8, 21),
+            ("moments B=1", models, statics, pre1, draws1, 21),
+            (f"sampled B={len(pairs_s)}", models_s, statics_s, pre_s, draws_s,
+             3 + 10)]
+    launches, entries = {}, []
+    try:
+        for label, mdl, st, pre, draws, per_pass in runs:
+            # the launches of one scale's pass, and the nets' inputs
+            inputs = {}
+            caps = [capture(mdl.desc, inputs, "desc"),
+                    capture(mdl.pose, inputs, "pose")]
+            torch.cuda.synchronize()
+            cuda_build.reset_launch_counts()
+            eager_before = ce.eager_serving_forwards
+            reg._scale_candidates(mdl, st, pre, draws, 0, 0, False)
+            torch.cuda.synchronize()
+            for h in caps:
+                h.remove()
+            counts = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
+            path = "epilogue_" + label.replace(" ", "_").replace("=", "")
+            launches[path] = counts
+            if counts["conv_epilogue"] != per_pass or \
+                    ce.eager_serving_forwards != eager_before:
+                raise AssertionError(
+                    f"conv_epilogue, {label}: {counts['conv_epilogue']} "
+                    f"launches a pass (expected {per_pass}), "
+                    f"{ce.eager_serving_forwards - eager_before} conv "
+                    "forwards served by the eager chain (expected 0)")
+            # every layer against the plain version, timed
+            case["name"] = label
+            with torch.no_grad():
+                got = (mdl.desc(*inputs["desc"]), mdl.pose(*inputs["pose"]))
+            case["name"] = None
+            # the nets through the kernel against the plain route and the
+            # eager chain
+            want = {}
+            for route, ctx in (("plain route", plain_route),
+                               ("eager chain", eager_route)):
+                with torch.no_grad(), ctx():
+                    want[route] = (mdl.desc(*inputs["desc"]),
+                                   mdl.pose(*inputs["pose"]))
+            torch.cuda.synchronize()
+            for route, (w_desc, w_ind) in want.items():
+                same = [torch.equal(got[0][k], w_desc[k])
+                        for k in ("desc", "equi")] + [torch.equal(got[1],
+                                                                  w_ind)]
+                if not all(same):
+                    raise AssertionError(
+                        f"conv_epilogue, {label}: desc, equi, ind equal to "
+                        f"the {route}: {same}")
+            log(f"conv_epilogue, {label}: {per_pass} launches a pass, no "
+                f"eager-served conv forward; desc {list(got[0]['desc'].shape)}"
+                f", equi, ind {list(got[1].shape)} equal to the "
+                f"{' and the '.join(want)}")
+            # launches: phase 4's run of the pass's path
+            add_entries(label, label.split()[0], "desc, equi and ind equal "
+                        "to the plain route's and the eager chain's")
+    finally:
+        for h in hooks:
+            h.remove()
+    return launches, entries
+
+
 # ---- phase 14: the last names of the port ----------------------------------
 # (a): the flags of the mixed batch, pair by pair (True: a gravity-aligned
 # pair), and how far a slot's pose may be from its flag's single-flag batch
@@ -2361,8 +2603,8 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
 MIXED_FLAGS = (True, False, True, False)
 MIXED_POINTS = 24000
 MIXED_POSE_TOL = (1e-4, 0.01)
-MIXED_LAUNCHES = {"fps": 2, "strat": 2, "moments": 4, "cell_query": 0,
-                  "conv_stack": 0}
+MIXED_LAUNCHES = with_epilogue({"fps": 2, "strat": 2, "moments": 4,
+                                "cell_query": 0, "conv_stack": 0})
 # (b): CylindricalUNet at the serving patch count (2 x 1500 keypoints), the
 # patches the CPU runs beside the card in eval mode, the training batch;
 # tolerances of tests/test_torch_models.py (LAYER_TOL, against the largest
@@ -2683,6 +2925,7 @@ def main() -> int:
     from bufferx_tpu_torch.kernels import conv_pallas
     from bufferx_tpu_torch.kernels import fps as fps_mod
     from bufferx_tpu_torch.kernels import strat_pallas
+    from bufferx_tpu_torch.models import layers
     from bufferx_tpu_torch.models.layers import CylindricalConvNet
     from bufferx_tpu_torch.pipeline import registration as reg
     from bufferx_tpu_torch.tools import bench_strat
@@ -2762,6 +3005,12 @@ def main() -> int:
                 torch.cat([pre.pvalid[c, scale] for c in first]))
 
     kernels = []
+
+    # ---- 3b. the conv layers' serving epilogue ----------------------------
+    launches_3b, epilogue_kernels = run_conv_epilogue(
+        torch, cuda_build, reg, dev, statics, models, pre, draws8, pairs[0],
+        statics_s, models_s, pairs16[:2])
+    kernels.extend(epilogue_kernels)
 
     # K1: both clouds, num_probe rounds
     xyz2 = torch.stack([src.xyz, tgt.xyz])
@@ -3074,9 +3323,17 @@ def main() -> int:
     cudnn = cudnn.to(dev).eval()
     x5_cf = x5.permute(0, 4, 1, 2, 3)
 
-    def cudnn_stack():
-        with torch.no_grad():
-            return cudnn(x5_cf)
+    def cudnn_stack(epilogue=False):
+        """The library yardstick: cuDNN's convolutions with the layers'
+        eager epilogue (as they run off the card), or with E1's."""
+        on_card = layers._on_card
+        if not epilogue:
+            layers._on_card = lambda _t: False
+        try:
+            with torch.no_grad():
+                return cudnn(x5_cf)
+        finally:
+            layers._on_card = on_card
 
     flops = 2.0 * kq * 7 * 20 * 9 * sum(
         ci * co for ci, co in conv_pallas.CYL_LAYER_CHANNELS)
@@ -3088,7 +3345,9 @@ def main() -> int:
         max_abs_err=float(err.max()),
         extra=dict(max_abs_err_random_weights=float(err_r.max()),
                    mean_abs_err_random_weights=float(err_r.mean()),
-                   mean_abs_err=float(err.mean())),
+                   mean_abs_err=float(err.mean()),
+                   cudnn_with_epilogue_ms=time_ms(
+                       lambda: cudnn_stack(epilogue=True), 5)),
         ms=time_ms(lambda: conv_pallas.cyl_conv_stack_cuda(
             x5, w5, b5, p5), 10),
         plain_ms=time_ms(lambda: conv_pallas.cyl_conv_stack_plain(
@@ -3111,6 +3370,7 @@ def main() -> int:
                             models, pairs),
         "sampled": run_path(torch, reg, se3, cuda_build, "sampled", cfg_s,
                             models_s, pairs, poses=poses_4b),
+        **launches_3b,
     }
 
     # ---- 6. batched two-phase serving at full width, moments path ----------
@@ -3326,6 +3586,22 @@ def main() -> int:
     kernels.extend(last_kernels)
 
     # ---- result lines -----------------------------------------------------
+    out = kernels_line(cuda_build, kernels, launches)
+    print(json.dumps({"batched": list(batched.values())}), flush=True)
+    print(json.dumps({"gate": gate, "harness": harness}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"dataset": dataset}), flush=True)
+    print(json.dumps({"multiframe": multiframe}), flush=True)
+    print(json.dumps({"offline": offline}), flush=True)
+    print(json.dumps({"last_names": last}), flush=True)
+    print(json.dumps({"kernels": out}), flush=True)
+    print(json.dumps({"ok": True, "device": device_line(torch)}), flush=True)
+    return 0
+
+
+def kernels_line(cuda_build, kernels: list, launches: dict) -> list:
+    """The kernels line's entries: each kernel entry with its source, what
+    it replaces and its launches on its path and on every path."""
     out = []
     for kr in kernels:
         kk = cuda_build.KERNELS[kr["name"]]
@@ -3343,19 +3619,12 @@ def main() -> int:
             bound_by=kr["bound"][1], library_ms=kr["library_ms"],
             **kr.get("extra", {}),
         ))
-    print(json.dumps({"batched": list(batched.values())}), flush=True)
-    print(json.dumps({"gate": gate, "harness": harness}), flush=True)
-    print(json.dumps({"training": training}), flush=True)
-    print(json.dumps({"dataset": dataset}), flush=True)
-    print(json.dumps({"multiframe": multiframe}), flush=True)
-    print(json.dumps({"offline": offline}), flush=True)
-    print(json.dumps({"last_names": last}), flush=True)
-    print(json.dumps({"kernels": out}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+    return out
+
+
+def device_line(torch) -> dict:
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
 
 
 if __name__ == "__main__":

@@ -63,6 +63,23 @@ def _hook_outputs(modules: dict) -> dict:
     return got
 
 
+def _stem_out(t):
+    """The moments stem's output, handed on as the backbone's padded input
+    [K, 16, rad, ele + 2, azi + 2] ("pad3d"), back to channels-last [K, G,
+    16]."""
+    t = t[..., 1:-1, 1:-1]
+    return t.permute(0, 2, 3, 4, 1).reshape(t.shape[0], -1, t.shape[1])
+
+
+def _backbone_out(t, i):
+    """Backbone layer ``i``'s output: layers 0-6 hand on the next layer's
+    padded input ("pad2d"), layer 0 without its rad = 1 axis."""
+    if i == 7:
+        return t
+    t = t[..., 1:-1, 1:-1]
+    return t[:, :, None] if i == 0 else t
+
+
 def _close(jax_out, torch_out, tol, what):
     ref = np.asarray(jax_out, dtype=np.float32)
     got = torch_out.detach().float().numpy()
@@ -93,11 +110,12 @@ def test_minispinnet_layerwise(weights, dt):
         o = tm(torch.from_numpy(x))
 
     tol = LAYER_TOL[dt]
-    _close(inter["ConvBNRelu_0"]["__call__"][0], got["stem"], tol, "stem")
+    _close(inter["ConvBNRelu_0"]["__call__"][0], _stem_out(got["stem"]), tol,
+           "stem")
     for i in range(8):
         ref = inter["CylindricalConvNet_0"][f"ConvBNRelu_{i}"]["__call__"][0]
-        _close(ref, torch.movedim(got[f"backbone.{i}"], 1, -1), tol,
-               f"backbone layer {i}")
+        _close(ref, torch.movedim(_backbone_out(got[f"backbone.{i}"], i), 1,
+                                  -1), tol, f"backbone layer {i}")
     for jname, tname in (("ConvBNRelu_1", "att_hidden"),
                          ("ConvBNRelu_2", "att_gate")):
         _close(inter[jname]["__call__"][0], torch.movedim(got[tname], 1, -1),
@@ -162,7 +180,12 @@ def test_minispinnet_sampled_layerwise(fused):
     with torch.no_grad():
         o = tm(torch.from_numpy(x))
     tol = LAYER_TOL["bf16"]
-    _close(inter["ConvBNRelu_0"]["__call__"][0], got["stem"], tol, "stem")
+    stem_ref = inter["ConvBNRelu_0"]["__call__"][0]
+    # the net's stem hands on the max over the samples
+    _close(jnp.max(stem_ref, axis=2), got["stem"], tol, "stem max")
+    with torch.no_grad():               # every sample's, as a bare call
+        stem = tm.stem(torch.from_numpy(x))
+    _close(stem_ref, stem, tol, "stem")
     _close(inter["CylindricalConvNet_0"]["__call__"][0][0],
            torch.movedim(got["backbone"], 1, -1), tol, "backbone")
     for jname, tname in (("ConvBNRelu_1", "att_hidden"),
@@ -206,11 +229,12 @@ def test_minispinnet_softmax_and_width_layerwise(snap, dt):
     with torch.no_grad():
         o = tm(torch.from_numpy(x))
     tol = LAYER_TOL[dt]
-    _close(inter["ConvBNRelu_0"]["__call__"][0], got["stem"], tol, "stem")
+    _close(inter["ConvBNRelu_0"]["__call__"][0], _stem_out(got["stem"]), tol,
+           "stem")
     for i in range(8):
         ref = inter["CylindricalConvNet_0"][f"ConvBNRelu_{i}"]["__call__"][0]
-        _close(ref, torch.movedim(got[f"backbone.{i}"], 1, -1), tol,
-               f"backbone layer {i}")
+        _close(ref, torch.movedim(_backbone_out(got[f"backbone.{i}"], i), 1,
+                                  -1), tol, f"backbone layer {i}")
     for jname, tname in (("ConvBNRelu_1", "att_hidden"),
                          ("ConvBNRelu_2", "att_gate")):
         _close(inter[jname]["__call__"][0], torch.movedim(got[tname], 1, -1),
