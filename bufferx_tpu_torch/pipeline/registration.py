@@ -53,7 +53,8 @@ too): ``bufferx.prepare``
 host read of a batch; in every pass ``bufferx.precompute`` (with
 ``bufferx.prefilter``, the clutter prefilter), ``bufferx.candidates`` a
 scale (with ``bufferx.describe``, the descriptor net) and
-``bufferx.solve`` (with ``bufferx.refine``, IRLS).
+``bufferx.solve`` (with ``bufferx.ransac``, the RANSAC solve, and
+``bufferx.refine``, IRLS).
 
 Random draws are explicit (:class:`Draws`): the strip offsets of the fused
 stratified query or the per-scale offsets of the other queries, and the
@@ -635,10 +636,11 @@ def _solve(statics: PipelineStatics, cand: _Candidates, pool: torch.Tensor,
         res = gnc_tls_solve(cand.ss, cand.tt, pool,
                             noise_bound=statics.kiss_resolution)
     else:
-        res = ransac_pose(cand.ss, cand.tt, pool, cand.valid, rank_draws,
-                          dist_th=statics.dist_th,
-                          similar_th=statics.similar_th,
-                          chunk=statics.ransac_chunk)
+        with span("bufferx.ransac", pairs=cand.ss.shape[0], stream=True):
+            res = ransac_pose(cand.ss, cand.tt, pool, cand.valid, rank_draws,
+                              dist_th=statics.dist_th,
+                              similar_th=statics.similar_th,
+                              chunk=statics.ransac_chunk)
     return res.pose, res.num_inliers
 
 

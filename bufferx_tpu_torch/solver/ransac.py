@@ -11,6 +11,10 @@ The draws are explicit: ``rank_draws [B, H, 3]`` holds uniform integers in
 [0, 2^30) (reduced modulo the pool size here, as the JAX solver reduces its
 ``randint`` draw). A test passes JAX's draw; by default they come from a
 ``torch.Generator``.
+
+While tracing is on (:mod:`bufferx_tpu_torch.utils.timers`) each call adds
+the hypotheses it scores, B x H from the draws' shape, to the host counter
+:data:`HYPOTHESES`; nothing is read from the device for it.
 """
 
 from __future__ import annotations
@@ -21,10 +25,14 @@ import torch
 
 from bufferx_tpu_torch.core.linalg import kabsch, take_rows
 from bufferx_tpu_torch.core.se3 import integrate
+from bufferx_tpu_torch.utils.timers import count
 
-__all__ = ["RansacResult", "ransac_pose", "draw_ranks", "RANK_RANGE"]
+__all__ = ["RansacResult", "ransac_pose", "draw_ranks", "RANK_RANGE",
+           "HYPOTHESES"]
 
 RANK_RANGE = 1 << 30
+# the host counter of the hypotheses scored (utils.timers.counters)
+HYPOTHESES = "ransac.hypotheses"
 
 
 class RansacResult(NamedTuple):
@@ -57,6 +65,7 @@ def ransac_pose(src, tgt, pool_mask, eval_mask, rank_draws, dist_th: float,
     npool = torch.clamp_min(cum[:, -1], 1)
     ranks = rank_draws.to(torch.int64) % npool[:, None, None]    # [B, H, 3]
     b, h, _ = ranks.shape
+    count(HYPOTHESES, b * h)
     # idx = #{cum <= rank}: the rank-th pool member
     sel = torch.searchsorted(cum, ranks.reshape(b, h * 3), right=True)
     a = take_rows(src, sel).reshape(b, h, 3, 3)                  # [B, H, 3, 3]

@@ -26,6 +26,9 @@ fused conv stack. It prints:
   and the conv layers' eval-mode forwards on the card that took the eager
   chain a pair (``conv_epilogue.eager_serving_forwards``, 0 on the main
   path), over the traced pairs;
+- the RANSAC hypotheses scored a pair (the host counter
+  ``solver.ransac.HYPOTHESES``, read with the spans), over the traced
+  pairs;
 - one JSON line with those numbers.
 
 ``--batch B`` serves ``--pairs`` batches of B pairs after the warm-up
@@ -62,8 +65,9 @@ from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
 from bufferx_tpu_torch.kernels import conv_epilogue
 from bufferx_tpu_torch.kernels.density import density_inlier_mask
 from bufferx_tpu_torch.pipeline import registration as reg
+from bufferx_tpu_torch.solver.ransac import HYPOTHESES
 from bufferx_tpu_torch.tools.weights import load_snapshot, load_snapshot_config
-from bufferx_tpu_torch.utils.timers import spans, tracing
+from bufferx_tpu_torch.utils.timers import counters, spans, tracing
 
 SNAPSHOT = os.path.join(os.path.dirname(__file__), "..", "..", "snapshot",
                         "hard_moments_r4ft2")
@@ -265,6 +269,10 @@ def main() -> int:
           f"launches a pair, {epilogue['eager_served_per_pair']:g} conv "
           "forwards a pair served by the eager chain", flush=True)
     records = spans()
+    epilogue["ransac_hypotheses_per_pair"] = (
+        counters().get(HYPOTHESES, 0) / traced_pairs)
+    print(f"ransac: {epilogue['ransac_hypotheses_per_pair']:g} hypotheses "
+          "scored a pair", flush=True)
     tree = _span_tree(records)
     def ms(x):
         return "-" if x is None else f"{x:.2f} ms"

@@ -20,6 +20,11 @@ of at most :data:`SPAN_CAPACITY` records, the oldest dropped first;
 :func:`spans` resolves their stream times, returns them, empties the store
 and keeps the read events for the next spans. :func:`spanned` puts every
 call of a function in a span.
+
+:func:`count` adds to a named host counter, also only while tracing is on;
+each read of :func:`spans` takes the counters' totals and zeroes them, and
+:func:`counters` gives the totals of that read, so that a reader sees the
+counts of the same calls as the spans.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["Timer", "AverageMeter", "DeviceTimer", "SPAN_CAPACITY",
-           "SpanRecord", "span", "spanned", "spans", "tracing"]
+           "SpanRecord", "count", "counters", "span", "spanned", "spans",
+           "tracing"]
 
 # the most closed spans the store holds between two reads of spans()
 SPAN_CAPACITY = 8192
@@ -155,9 +161,9 @@ class SpanRecord(NamedTuple):
 
 class _Tracer:
     """The process's tracing state: how many :func:`tracing` blocks are
-    open, each thread's stack of open spans, the store of closed ones, and
-    the CUDA event pairs that :func:`spans` has read, to be recorded
-    again."""
+    open, each thread's stack of open spans, the store of closed ones, the
+    CUDA event pairs that :func:`spans` has read, to be recorded again,
+    and the counters since and as of its last read."""
 
     def __init__(self):
         self.forced = 0
@@ -166,6 +172,8 @@ class _Tracer:
             maxlen=SPAN_CAPACITY)
         self.ids = itertools.count(1)
         self.events: list = []
+        self.counts: collections.Counter = collections.Counter()
+        self.read_counts: dict = {}
 
     def stack(self) -> list:
         stack = getattr(self.local, "stack", None)
@@ -246,6 +254,19 @@ def spanned(name: str, pairs=None, stream: bool = False):
     return wrap
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the host counter ``name`` while tracing is on (see the
+    module's docstring); otherwise nothing."""
+    if _on():
+        _TRACER.counts[name] += n
+
+
+def counters() -> dict:
+    """{name: total} of the counters as the last :func:`spans` read them:
+    what was counted between that read and the one before it."""
+    return dict(_TRACER.read_counts)
+
+
 @contextlib.contextmanager
 def tracing():
     """Tracing on for the block, with or without a profiler."""
@@ -258,8 +279,11 @@ def tracing():
 
 def spans() -> list:
     """[:class:`SpanRecord`] of the spans closed since the last read, in the
-    order they closed; empties the store. Waits for the device to reach
-    each ``stream`` span's end to read its stream time."""
+    order they closed; empties the store, and takes and zeroes the
+    counters (:func:`counters`). Waits for the device to reach each
+    ``stream`` span's end to read its stream time."""
+    _TRACER.read_counts = dict(_TRACER.counts)
+    _TRACER.counts.clear()
     out = []
     while _TRACER.store:
         name, sid, parent, root, pairs, host_ms, stream, events = \

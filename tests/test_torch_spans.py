@@ -8,7 +8,8 @@ CPU ``torch.profiler``, two-phase serving of 3 pairs at batch size 2, with
 an early-exit threshold at which only the first batch is redone, gives one
 ``bufferx.serve`` tree: phase 1 with a pass a batch, phase 2 with a fetch a
 batch and the redo pass, each pass ``precompute``, ``candidates`` a scale
-(each with its ``describe``) and ``solve``, with the pass's pairs, and
+(each with its ``describe``) and ``solve`` (with its ``ransac``), with
+the pass's pairs, and
 every span under the one root. Results are bit-equal with tracing on and
 off. Each single entry point is one ``bufferx.register`` root; the clutter
 prefilter and IRLS nest under ``precompute`` and ``solve``. The store
@@ -34,7 +35,8 @@ SEEDS = (2, 0, 4)
 BATCH = 2
 SCALES = 3
 STAGES = {"bufferx.precompute", "bufferx.candidates", "bufferx.describe",
-          "bufferx.solve", "bufferx.prefilter", "bufferx.refine"}
+          "bufferx.solve", "bufferx.ransac", "bufferx.prefilter",
+          "bufferx.refine"}
 
 
 def _serve(w, cfg):
@@ -81,7 +83,8 @@ def _pass(pairs, parent, scales):
     for _ in range(scales):
         out += [("bufferx.candidates", pairs, parent),
                 ("bufferx.describe", pairs, "bufferx.candidates")]
-    return out + [("bufferx.solve", pairs, parent)]
+    return out + [("bufferx.solve", pairs, parent),
+                  ("bufferx.ransac", pairs, "bufferx.solve")]
 
 
 def _tree(records) -> list:
