@@ -142,6 +142,7 @@ def build_all() -> float:
         conv_epilogue,
         conv_pallas,
         fps,
+        hyp_score,
         strat_pallas,
     )
 

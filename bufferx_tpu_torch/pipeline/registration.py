@@ -652,6 +652,24 @@ def _refine(statics: PipelineStatics, pose: torch.Tensor,
                            statics.dist_th, num_iters=statics.irls_iters)
 
 
+def _sampling_pool(cand: _Candidates, consensus_mask: torch.Tensor,
+                  n_valid: torch.Tensor) -> torch.Tensor:
+    """RANSAC's sampling pool [B, K]: the consensus inliers when the vote is
+    healthy; else the most confident half of the matches; as a last resort
+    everything valid (``n_valid``: the valid matches a pair)."""
+    valid, d2 = cand.valid, cand.d2
+    sorted_d2 = torch.sort(
+        torch.where(valid, d2, torch.full_like(d2, float("inf"))), dim=1
+    ).values
+    med = torch.gather(
+        sorted_d2, 1, torch.clamp(n_valid // 2, 0, d2.shape[1] - 1)[:, None])
+    confident = valid & (d2 <= med)
+    return torch.where(
+        consensus_mask.sum(dim=1, keepdim=True) >= 8, consensus_mask,
+        torch.where(confident.sum(dim=1, keepdim=True) >= 8, confident, valid),
+    )
+
+
 @spanned("bufferx.solve", stream=True,
          pairs=lambda statics, cand, *_a, **_k: cand.valid.shape[0])
 def _pool_and_solve(statics: PipelineStatics, cand: _Candidates,
@@ -661,24 +679,13 @@ def _pool_and_solve(statics: PipelineStatics, cand: _Candidates,
     """Cross-scale consensus -> sampling pool -> pose solve -> result, for a
     batch. ``refine`` overrides ``statics.pose_refine`` (the timed path runs
     the refinement as its own phase)."""
-    valid, d2 = cand.valid, cand.d2
+    valid = cand.valid
     consensus_mask, _best, n_consensus = cross_scale_consensus(
         cand.Rc, cand.tc, cand.ss, cand.tt, valid, azi_n=statics.azi_n,
         inlier_th=statics.inlier_th,
     )
-    # sampling pool: consensus inliers when the vote is healthy; else the
-    # most confident half of the matches; as a last resort everything valid
     n_valid = torch.sum(valid, dim=1)
-    sorted_d2 = torch.sort(
-        torch.where(valid, d2, torch.full_like(d2, float("inf"))), dim=1
-    ).values
-    med = torch.gather(
-        sorted_d2, 1, torch.clamp(n_valid // 2, 0, d2.shape[1] - 1)[:, None])
-    confident = valid & (d2 <= med)
-    pool = torch.where(
-        consensus_mask.sum(dim=1, keepdim=True) >= 8, consensus_mask,
-        torch.where(confident.sum(dim=1, keepdim=True) >= 8, confident, valid),
-    )
+    pool = _sampling_pool(cand, consensus_mask, n_valid)
     pose, num_inliers = _solve(statics, cand, pool, rank_draws)
     if statics.pose_refine if refine is None else refine:
         pose = _refine(statics, pose, cand)

@@ -3,9 +3,11 @@
 Counterpart of :func:`bufferx_tpu.solver.consensus.cross_scale_consensus`:
 each candidate counts the valid correspondences it brings within
 ``thr_j = ||ss_j|| * pi / azi_n * inlier_th``; the best candidate's inlier
-set (ties to the lowest index) seeds the pose solver. Candidates are scored
-in chunks to bound the [B, chunk, C, 3] transient. A leading pair dimension
-takes the place of the JAX package's ``vmap``.
+set (ties to the lowest index) seeds the pose solver. The candidates are
+scored by :func:`bufferx_tpu_torch.kernels.hyp_score.hyp_score` (K6 on the
+card; on the CPU the eager loop, in chunks that bound its [B, chunk, C, 3]
+transient). A leading pair dimension takes the place of the JAX package's
+``vmap``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 import torch
 
 from bufferx_tpu_torch.core.linalg import take_rows
+from bufferx_tpu_torch.kernels.hyp_score import hyp_score
 
 __all__ = ["cross_scale_consensus"]
 
@@ -25,16 +28,8 @@ def cross_scale_consensus(R_cand, t_cand, ss_kpts, tt_kpts, valid,
     [B, C, 3], valid [B, C] -> (inlier_mask [B, C], best_idx [B],
     best_count [B])."""
     thr = torch.linalg.norm(ss_kpts, dim=-1) * (math.pi / azi_n) * inlier_th
-    counts = []
-    for i in range(0, R_cand.shape[1], chunk):
-        Rc, tc = R_cand[:, i:i + chunk], t_cand[:, i:i + chunk]
-        warped = (torch.einsum("bhij,bcj->bhci", Rc, ss_kpts)
-                  + tc[:, :, None, :])
-        d = torch.linalg.norm(warped - tt_kpts[:, None], dim=-1)
-        n_in = torch.sum((d < thr[:, None]) & valid[:, None], dim=-1)
-        counts.append(torch.where(valid[:, i:i + chunk], n_in,
-                                  torch.full_like(n_in, -1)))
-    counts = torch.cat(counts, dim=1)
+    counts = hyp_score(R_cand, t_cand, ss_kpts, tt_kpts, thr, valid, valid,
+                       chunk)
     best = torch.argmax(counts, dim=1)                           # [B]
     R_best = take_rows(R_cand, best[:, None])[:, 0]              # [B, 3, 3]
     t_best = take_rows(t_cand, best[:, None])                    # [B, 1, 3]

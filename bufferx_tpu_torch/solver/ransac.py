@@ -3,8 +3,10 @@
 Counterpart of :func:`bufferx_tpu.solver.ransac.ransac_pose`: a fixed budget
 of minimal 3-point sets drawn uniformly from the sampling pool by rank
 selection, solved all at once by Horn/Kabsch, filtered by Open3D's
-edge-length and distance checkers, scored in chunks against every evaluated
-correspondence, and the winner refit by weighted Kabsch on its inliers.
+edge-length and distance checkers, scored against every evaluated
+correspondence (:func:`bufferx_tpu_torch.kernels.hyp_score.hyp_score`: K6 on
+the card, the eager chunk loop on the CPU), and the winner refit by weighted
+Kabsch on its inliers.
 
 A leading pair dimension takes the place of the JAX package's ``vmap``.
 The draws are explicit: ``rank_draws [B, H, 3]`` holds uniform integers in
@@ -25,10 +27,11 @@ import torch
 
 from bufferx_tpu_torch.core.linalg import kabsch, take_rows
 from bufferx_tpu_torch.core.se3 import integrate
+from bufferx_tpu_torch.kernels.hyp_score import hyp_score
 from bufferx_tpu_torch.utils.timers import count
 
-__all__ = ["RansacResult", "ransac_pose", "draw_ranks", "RANK_RANGE",
-           "HYPOTHESES"]
+__all__ = ["RansacResult", "ransac_pose", "hypotheses", "draw_ranks",
+           "RANK_RANGE", "HYPOTHESES"]
 
 RANK_RANGE = 1 << 30
 # the host counter of the hypotheses scored (utils.timers.counters)
@@ -50,11 +53,11 @@ def draw_ranks(num_hypotheses: int, generator: torch.Generator, device,
     ).to(device)
 
 
-def ransac_pose(src, tgt, pool_mask, eval_mask, rank_draws, dist_th: float,
-                similar_th: float = 0.8, chunk: int = 2048) -> RansacResult:
-    """A batch of pairs: src/tgt [B, C, 3]; pool_mask (sampling pool) and
-    eval_mask (scored set) [B, C] bool; rank_draws [B, H, 3] int in
-    [0, 2^30). Nothing here reads a value back to the host."""
+def hypotheses(src, tgt, pool_mask, eval_mask, rank_draws, dist_th: float,
+               similar_th: float = 0.8):
+    """The minimal sets of :func:`ransac_pose` solved and checked: (R
+    [B, H, 3, 3], t [B, H, 3], hyp_ok [B, H] bool, Open3D's edge-length and
+    distance checkers both passed)."""
     # empty pool: fall back to eval_mask, then to everything
     pool = torch.where(
         pool_mask.any(dim=1, keepdim=True), pool_mask,
@@ -65,7 +68,6 @@ def ransac_pose(src, tgt, pool_mask, eval_mask, rank_draws, dist_th: float,
     npool = torch.clamp_min(cum[:, -1], 1)
     ranks = rank_draws.to(torch.int64) % npool[:, None, None]    # [B, H, 3]
     b, h, _ = ranks.shape
-    count(HYPOTHESES, b * h)
     # idx = #{cum <= rank}: the rank-th pool member
     sel = torch.searchsorted(cum, ranks.reshape(b, h * 3), right=True)
     a = take_rows(src, sel).reshape(b, h, 3, 3)                  # [B, H, 3, 3]
@@ -82,17 +84,22 @@ def ransac_pose(src, tgt, pool_mask, eval_mask, rank_draws, dist_th: float,
     # Open3D CorrespondenceCheckerBasedOnDistance on the minimal set
     wa = torch.matmul(a, R.transpose(-1, -2)) + t[:, :, None, :]
     dist_ok = torch.all(torch.linalg.norm(wa - bb, dim=-1) <= dist_th, dim=-1)
-    hyp_ok = edge_ok & dist_ok
+    return R, t, edge_ok & dist_ok
 
-    scores = []
-    for i in range(0, h, chunk):
-        warped = (torch.einsum("bhij,bcj->bhci", R[:, i:i + chunk], src)
-                  + t[:, i:i + chunk, None, :])
-        d = torch.linalg.norm(warped - tgt[:, None], dim=-1)
-        counts = torch.sum((d < dist_th) & eval_mask[:, None], dim=-1)
-        scores.append(torch.where(hyp_ok[:, i:i + chunk], counts,
-                                  torch.full_like(counts, -1)))
-    best = torch.argmax(torch.cat(scores, dim=1), dim=1)         # [B]
+
+def ransac_pose(src, tgt, pool_mask, eval_mask, rank_draws, dist_th: float,
+                similar_th: float = 0.8, chunk: int = 2048) -> RansacResult:
+    """A batch of pairs: src/tgt [B, C, 3]; pool_mask (sampling pool) and
+    eval_mask (scored set) [B, C] bool; rank_draws [B, H, 3] int in
+    [0, 2^30). ``chunk``: hypotheses a pass of the plain scoring on the CPU
+    (the kernel scores all at once). Nothing here reads a value back to the
+    host."""
+    b, h, _ = rank_draws.shape
+    count(HYPOTHESES, b * h)
+    R, t, hyp_ok = hypotheses(src, tgt, pool_mask, eval_mask, rank_draws,
+                              dist_th, similar_th)
+    scores = hyp_score(R, t, src, tgt, dist_th, eval_mask, hyp_ok, chunk)
+    best = torch.argmax(scores, dim=1)                           # [B]
     R_best = take_rows(R, best[:, None])[:, 0]                   # [B, 3, 3]
     t_best = take_rows(t, best[:, None])[:, 0]                   # [B, 3]
 

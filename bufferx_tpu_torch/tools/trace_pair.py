@@ -25,7 +25,9 @@ fused conv stack. It prints:
 - the serving epilogue's launches a pair (``KERNELS["conv_epilogue"]``)
   and the conv layers' eval-mode forwards on the card that took the eager
   chain a pair (``conv_epilogue.eager_serving_forwards``, 0 on the main
-  path), over the traced pairs;
+  path), over the traced pairs; the hypothesis scoring's launches
+  (``KERNELS["hyp_score"]``: the consensus and RANSAC, one each a solve) a
+  pair and a traced call (a pair, or a batch with ``--batch``);
 - the RANSAC hypotheses scored a pair (the host counter
   ``solver.ransac.HYPOTHESES``, read with the spans), over the traced
   pairs;
@@ -261,13 +263,22 @@ def main() -> int:
                 register(*batch)
                 torch.cuda.synchronize()
     traced_pairs = args.pairs * size
+    unit = f"batch of {size}" if args.batch else "pair"
     epilogue = {"conv_epilogue_launches_per_pair":
                 KERNELS["conv_epilogue"].launches / traced_pairs,
                 "eager_served_per_pair":
-                (conv_epilogue.eager_serving_forwards - counts) / traced_pairs}
+                (conv_epilogue.eager_serving_forwards - counts) / traced_pairs,
+                "hyp_score_launches_per_pair":
+                KERNELS["hyp_score"].launches / traced_pairs,
+                "hyp_score_launches_per_call":
+                KERNELS["hyp_score"].launches / args.pairs}
     print(f"conv epilogue: {epilogue['conv_epilogue_launches_per_pair']:g} "
           f"launches a pair, {epilogue['eager_served_per_pair']:g} conv "
           "forwards a pair served by the eager chain", flush=True)
+    print(f"hypothesis scoring: "
+          f"{epilogue['hyp_score_launches_per_pair']:g} launches a pair, "
+          f"{epilogue['hyp_score_launches_per_call']:g} a {unit}",
+          flush=True)
     records = spans()
     epilogue["ransac_hypotheses_per_pair"] = (
         counters().get(HYPOTHESES, 0) / traced_pairs)
@@ -288,7 +299,6 @@ def main() -> int:
     all_scales = tuple(range(statics.num_scales))
     srcs, tgts, draws = batches[1]
     src, tgt = reg.stack_clouds(srcs), reg.stack_clouds(tgts)
-    unit = f"batch of {size}" if args.batch else "pair"
     result = {
         "device": torch.cuda.get_device_name(0), "smi": smi,
         "snapshot": os.path.normpath(args.snapshot), "dataset": args.dataset,

@@ -48,6 +48,18 @@ Phases (any failure raises and exits non-zero):
    the card); 21 launches a pass (11 the descriptor net, 10 the
    cost volume; 3 + 10 on the sampled path) and no conv forward served by
    the eager chain;
+3c. the hypothesis scoring (``kernels/hyp_score.py``) on the real
+   candidates of the batch of 8 (all scales): RANSAC's checked minimal sets
+   from the solver's own pool at B = 8, H = 8192 on scale 0's 1500
+   correspondences and on all 4500, at H = 50000 on 4500 (the outdoor
+   preset's budget) and at B = 1 on 4500, and the consensus's candidates
+   at C x C (B = 8 and 1500 or 4500, B = 1 and 4500): counts
+   ``torch.equal`` to the plain version, kernel and plain ms beside the
+   bound by operations over every pair and over the pairs the gate and the
+   mask leave; every distance of 256 hypotheses equal to the eager chain's
+   (the kernel's rounding order); every phase that registers pairs holds
+   its launches to a consensus and a RANSAC scoring a solve (a consensus
+   alone with GNC), one solve a precomputation;
 4. the main path: ``register_pair`` with the ``hard_moments_r4ft2`` weights
    ("moments" descriptor) at full width (30208 points, 1500 keypoints, 2000
    probes, 512-point patches, 3 scales, 8192 hypotheses) on 4 seeded
@@ -275,37 +287,42 @@ JAX_DATASET_SAMPLED_SUCCESSES = {1024: 2, 128: 2}
 JAX_DATASET_GATE_SUCCESSES = 17
 
 
-def with_epilogue(want: dict, chunks: int = 1) -> dict:
-    """``want``, the other kernels' expected launches, with the conv layers'
-    serving epilogue's: one launch a conv layer of every serving pass of the
-    nets. A moments pass (one moment pooling) runs the descriptor net's 11
-    layers and the cost volume's 10; a sampled pass (one cell query) runs
-    the cost volume and, for each sub-batch of patches, the stem and the
-    attention head around the fused conv stack (3, one conv stack launch
-    each) or, with the cuDNN backbone, 11 layers (``chunks`` sub-batches a
-    pass)."""
+def with_derived(want: dict, chunks: int = 1, per_solve: int = 2) -> dict:
+    """``want``, the other kernels' expected launches, with those that
+    follow from them. The conv layers' serving epilogue: one launch a conv
+    layer of every serving pass of the nets. A moments pass (one moment
+    pooling) runs the descriptor net's 11 layers and the cost volume's 10;
+    a sampled pass (one cell query) runs the cost volume and, for each
+    sub-batch of patches, the stem and the attention head around the fused
+    conv stack (3, one conv stack launch each) or, with the cuDNN backbone,
+    11 layers (``chunks`` sub-batches a pass). The hypothesis scoring: a
+    solve follows every precomputation (one FPS launch), and scores the
+    consensus's candidates and, with RANSAC, its hypotheses: ``per_solve``
+    launches (1 with GNC)."""
     passes = want.get("cell_query", 0)
     sampled_desc = 3 * want.get("conv_stack", 0) or 11 * chunks * passes
     return dict(want, conv_epilogue=21 * want.get("moments", 0)
-                + 10 * passes + sampled_desc)
+                + 10 * passes + sampled_desc,
+                hyp_score=per_solve * want.get("fps", 0))
 
 
 # launches per pair: FPS for both clouds in one launch, the stratified query
 # for both clouds and all scales in one launch, then per scale moment pooling
 # ("moments"), or the cell query and the fused conv stack ("sampled" with
-# fused_conv), and the serving epilogue for each conv layer; a batch run
+# fused_conv), the serving epilogue for each conv layer, and the scoring of
+# the consensus's candidates and of RANSAC's hypotheses; a batch run
 # launches what one pair does, but the conv stack once for each sub-batch
 # of patches the descriptor net takes
 EXPECTED_PER_PAIR = {
-    "moments": with_epilogue({"fps": 1, "strat": 1, "moments": 3,
+    "moments": with_derived({"fps": 1, "strat": 1, "moments": 3,
                               "cell_query": 0, "conv_stack": 0}),
-    "sampled": with_epilogue({"fps": 1, "strat": 1, "moments": 0,
+    "sampled": with_derived({"fps": 1, "strat": 1, "moments": 0,
                               "cell_query": 3, "conv_stack": 3}),
 }
 # the path whose run gives a kernel's "launches" in the kernels line
 PATH_OF = {"fps": "moments", "strat": "moments", "moments": "moments",
            "cell_query": "sampled", "conv_stack": "sampled",
-           "conv_epilogue": "moments"}
+           "conv_epilogue": "moments", "hyp_score": "moments"}
 # launches a timing of the serving epilogue (phase 3b)
 EPILOGUE_REPS = 10
 # published H100 SXM peaks: HBM bytes/s, float32 outside the tensor
@@ -513,7 +530,7 @@ def run_batched(torch, reg, se3, cuda_build, label, cfg, models, pairs,
     for n, per_scale in per_scale_kernels.items():
         want[n] = sum(per_scale(len(idx)) for idx in batches) + \
             num_scales * sum(per_scale(len(r)) for r in redone if r)
-    want = with_epilogue(want)
+    want = with_derived(want)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want} "
                              f"({len(batches)} batches, {redo_batches} redone)")
@@ -591,7 +608,7 @@ def run_gate(torch, reg, cuda_build, models, dev):
     want = {n: 0 for n in launches}
     want.update(fps=n_batches, strat=n_batches,
                 moments=n_batches * statics.num_scales)
-    want = with_epilogue(want)
+    want = with_derived(want)
     if launches != want:
         raise AssertionError(f"gate: launches {launches}, expected {want}")
     successes = sum(sum(r["successes"]) for r in rows)
@@ -1138,7 +1155,7 @@ def run_dataset_path(torch, cuda_build, reg, se3, dev):
             seconds = time.perf_counter() - t0
             got = {k: kk.launches for k, kk in cuda_build.KERNELS.items()}
             launches[f"dataset_{label}"] = got
-            want = with_epilogue(dict({k: 0 for k in got}, **want))
+            want = with_derived(dict({k: 0 for k in got}, **want))
             successes = sum(r["success"] for r in summary["rows"])
             cli[label] = dict(
                 checkpoint=os.path.basename(snap), flags=" ".join(flags),
@@ -1309,7 +1326,7 @@ def run_dataset_path(torch, cuda_build, reg, se3, dev):
                         cell_query=3 * nb,
                         conv_stack=3 * nb * -(-2 * BATCH * st.num_fps
                                               // reg.SAMPLED_DESC_CHUNK))
-            want = with_epilogue(want)
+            want = with_derived(want)
             if got != want:
                 raise AssertionError(f"dataset {label}: launches {got}, "
                                      f"expected {want}")
@@ -1646,6 +1663,10 @@ def run_multiframe(torch, cuda_build, reg, se3, dev):
             if counts[kname] < 1:
                 raise AssertionError(f"multi-frame ({run}): {kname} never "
                                      "launched")
+        if counts["hyp_score"] != with_derived(counts)["hyp_score"]:
+            raise AssertionError(f"multi-frame ({run}): hyp_score launched "
+                                 f"{counts['hyp_score']} times for "
+                                 f"{counts['fps']} precomputations")
         if summary["edges_registered"] < spec["registered"] - 1:
             raise AssertionError(
                 f"multi-frame ({run}): {summary['edges_registered']} edges "
@@ -1961,7 +1982,7 @@ IPHONE_GRID = dict(origin=(-1.5, -1.5, 0.5), dims=(500, 500, 500),
 # (d): tools/bench_scaling.py's batch run at world size 1 (4 pairs, every
 # scale, the sampled path with the cuDNN backbone; 12000 patches a pass, two
 # sub-batches of the descriptor net)
-BENCH_LAUNCHES = with_epilogue({"fps": 1, "strat": 1, "moments": 0,
+BENCH_LAUNCHES = with_derived({"fps": 1, "strat": 1, "moments": 0,
                                 "cell_query": 3, "conv_stack": 0}, chunks=2)
 
 
@@ -2233,7 +2254,7 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
             seconds = time.perf_counter() - t0
             got = {kk: kr.launches for kk, kr in cuda_build.KERNELS.items()}
             launches[f"iphone_{label}"] = got
-            want = with_epilogue(dict({kk: 0 for kk in got}, fps=n, strat=n,
+            want = with_derived(dict({kk: 0 for kk in got}, fps=n, strat=n,
                                       moments=3 * n))
             rows = summary["rows"]
             successes = sum(r["success"] for r in rows)
@@ -2595,6 +2616,128 @@ def run_conv_epilogue(torch, cuda_build, reg, dev, statics, models, pre8,
     return launches, entries
 
 
+# ---- phase 3c: the hypothesis scoring ---------------------------------------
+# flops a scored (hypothesis, correspondence): the rotation (3 products, 6
+# fused multiply-adds), the translation and the difference (6), the squared
+# norm (3 products, 2 sums), the compare and the count
+HYP_FLOPS = 28
+# hypotheses of the outdoor preset's solve (kitti.lidar.b8)
+KITTI_HYPOTHESES = 50000
+# launches a timing of the kernel; of its plain version
+HYP_REPS, HYP_PLAIN_REPS = 20, 3
+
+
+def run_hyp_score(torch, reg, dev, statics, models, src8, tgt8, draws8):
+    """Phase 3c (module notes): K6 against its plain version on the real
+    candidates of a registered batch of 8, at the cells' shapes: RANSAC at
+    H = 8192 on scale 0's 1500 correspondences and on all scales' 4500, at
+    H = 50000 on 4500, at B = 1 on 4500, the consensus at C x C; counts
+    ``torch.equal``, the kernel's distances equal to the eager chain's;
+    kernel, plain and bound ms. Returns the kernel entries (their launches
+    are phase 4's)."""
+    from bufferx_tpu_torch.kernels import hyp_score as hs
+    from bufferx_tpu_torch.solver.consensus import cross_scale_consensus
+    from bufferx_tpu_torch.solver.ransac import hypotheses
+    from bufferx_tpu_torch.tools.bench_strat import time_ms
+
+    scales = tuple(range(statics.num_scales))
+    with torch.no_grad():
+        cands = reg._batch_candidates(models, statics, src8, tgt8, draws8,
+                                      scales, False)
+    gen = torch.Generator().manual_seed(1300)
+    kitti_draws = torch.randint(0, 1 << 30, (BATCH, KITTI_HYPOTHESES, 3),
+                                generator=gen).to(dev)
+    entries = []
+
+    def thresholds(c):
+        return (torch.linalg.norm(c.ss, dim=-1) * (np.pi / statics.azi_n)
+                * statics.inlier_th)
+
+    def pool_of(c):
+        """The sampling pool ``_pool_and_solve`` gives RANSAC."""
+        mask, _best, _n = cross_scale_consensus(
+            c.Rc, c.tc, c.ss, c.tt, c.valid, azi_n=statics.azi_n,
+            inlier_th=statics.inlier_th)
+        return reg._sampling_pool(c, mask, torch.sum(c.valid, dim=1))
+
+    def check(label, args, chunk):
+        R, _t, src, _tgt, _thr, mask, gate = args
+        got = hs.hyp_score_cuda(*args)
+        want = hs.hyp_score_plain(*args, chunk)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"hyp_score, {label}: "
+                                 f"{int((got != want).sum())} counts differ "
+                                 "from the plain version")
+        b, h, c = R.shape[0], R.shape[1], src.shape[1]
+        scored = float((gate.sum(1) * mask.sum(1)).sum())
+        ms = time_ms(lambda: hs.hyp_score_cuda(*args), HYP_REPS)
+        plain = time_ms(lambda: hs.hyp_score_plain(*args, chunk),
+                        HYP_PLAIN_REPS)
+        bound = bound_ms(0.0, HYP_FLOPS * b * h * c)
+        bound_scored = bound_ms(0.0, HYP_FLOPS * scored)[0]
+        log(f"hyp_score, {label}: counts equal, kernel {ms:.4f} ms, plain "
+            f"{plain:.3f} ms, bound {bound[0]:.4f} ms (every pair), "
+            f"{bound_scored:.4f} ms (the {scored:.0f} pairs the gate and the "
+            f"mask leave), gated in {float(gate.float().mean()):.4f}, masked "
+            f"in {float(mask.float().mean()):.4f}, splits "
+            f"{hs.split_count(b, h, c, hs._sm_count(dev.index or 0))}")
+        entries.append(dict(
+            name="hyp_score", case=label, match="counts torch.equal",
+            max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+            bound=bound, shapes=f"R [{b}, {h}, 3, 3], C = {c}",
+            extra=dict(bound_scored_ms=bound_scored,
+                       gated_in=float(gate.float().mean()),
+                       masked_in=float(mask.float().mean()))))
+
+    every = reg._cat_candidates(cands)
+    for label, c, draws in (
+            ("RANSAC, mixed phase 1 (B = 8, H = 8192, C = 1500)", cands[0],
+             draws8.ransac),
+            ("RANSAC, mixed phase 2 (B = 8, H = 8192, C = 4500)", every,
+             draws8.ransac),
+            ("RANSAC, kitti phase 2 (B = 8, H = 50000, C = 4500)", every,
+             kitti_draws),
+            ("RANSAC, online (B = 1, H = 8192, C = 4500)",
+             reg._Candidates(*(x[:1] for x in every)), draws8.ransac[:1])):
+        R, t, ok = hypotheses(c.ss, c.tt, pool_of(c), c.valid, draws,
+                              statics.dist_th, statics.similar_th)
+        check(label, (R, t, c.ss, c.tt, statics.dist_th, c.valid, ok),
+              statics.ransac_chunk)
+        del R, t, ok
+    for label, c in (("consensus, scale 0 (B = 8, C = 1500)", cands[0]),
+                     ("consensus, all scales (B = 8, C = 4500)", every),
+                     ("consensus, online (B = 1, C = 4500)",
+                      reg._Candidates(*(x[:1] for x in every)))):
+        check(label, (c.Rc, c.tc, c.ss, c.tt, thresholds(c), c.valid,
+                      c.valid), 512)
+    # the rounding order: every distance the kernel scores equals the eager
+    # chain's, for the consensus's candidates and RANSAC's minimal sets
+    R, t, _ok = hypotheses(every.ss, every.tt, every.valid, every.valid,
+                           draws8.ransac[:, :256], statics.dist_th,
+                           statics.similar_th)
+    all_c = torch.ones_like(every.valid)
+    for label, Rh, th in (("RANSAC", R, statics.dist_th),
+                          ("consensus", every.Rc[:, :256].contiguous(),
+                           thresholds(every))):
+        tt = t if label == "RANSAC" else every.tc[:, :256].contiguous()
+        dist = torch.full((BATCH, 256, all_c.shape[1]), float("nan"),
+                          device=dev)
+        hs.hyp_score_cuda(Rh, tt, every.ss, every.tt, th, all_c,
+                          all_c[:, :256].contiguous(), dist=dist)
+        eager = torch.linalg.norm(
+            torch.einsum("bhij,bcj->bhci", Rh, every.ss) + tt[:, :, None, :]
+            - every.tt[:, None], dim=-1)
+        torch.cuda.synchronize()
+        if not torch.equal(dist, eager):
+            raise AssertionError(
+                f"hyp_score, {label}: {int((dist != eager).sum())} of "
+                f"{eager.numel()} distances differ from the eager chain's")
+        log(f"hyp_score, {label}: all {eager.numel()} distances of 256 "
+            "hypotheses equal to the eager chain's")
+    return entries
+
+
 # ---- phase 14: the last names of the port ----------------------------------
 # (a): the flags of the mixed batch, pair by pair (True: a gravity-aligned
 # pair), and how far a slot's pose may be from its flag's single-flag batch
@@ -2603,7 +2746,7 @@ def run_conv_epilogue(torch, cuda_build, reg, dev, statics, models, pre8,
 MIXED_FLAGS = (True, False, True, False)
 MIXED_POINTS = 24000
 MIXED_POSE_TOL = (1e-4, 0.01)
-MIXED_LAUNCHES = with_epilogue({"fps": 2, "strat": 2, "moments": 4,
+MIXED_LAUNCHES = with_derived({"fps": 2, "strat": 2, "moments": 4,
                                 "cell_query": 0, "conv_stack": 0})
 # (b): CylindricalUNet at the serving patch count (2 x 1500 keypoints), the
 # patches the CPU runs beside the card in eval mode, the training batch;
@@ -3011,6 +3154,10 @@ def main() -> int:
         torch, cuda_build, reg, dev, statics, models, pre, draws8, pairs[0],
         statics_s, models_s, pairs16[:2])
     kernels.extend(epilogue_kernels)
+
+    # ---- 3c. the hypothesis scoring ---------------------------------------
+    kernels.extend(run_hyp_score(torch, reg, dev, statics, models, src8,
+                                 tgt8, draws8))
 
     # K1: both clouds, num_probe rounds
     xyz2 = torch.stack([src.xyz, tgt.xyz])
@@ -3478,15 +3625,24 @@ def main() -> int:
     for name7, run7 in runs7.items():
         run7()                                       # warm-up
         torch.cuda.synchronize()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         res7, phases7 = run7()
         torch.cuda.synchronize()
         ms7 = (time.perf_counter() - t0) * 1e3
+        got7 = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
         rte, rre, ok = pose_errors(se3, cfg, res7.pose, T7)
         log(f"{name7}: {ms7:.1f} ms, scales {int(res7.scales_used)}, RTE "
             f"{rte:.4f} m, RRE {rre:.3f} deg, success {ok}, inliers "
-            f"{int(res7.num_inliers)}"
+            f"{int(res7.num_inliers)}, launches {got7}"
             + (f", phases (s) {phases7}" if phases7 else ""))
+        # a solve a precomputation: the consensus, and RANSAC but with GNC
+        per_solve = 1 if name7.endswith("gnc") else 2
+        if got7["fps"] < 1 or got7["hyp_score"] != per_solve * got7["fps"]:
+            raise AssertionError(f"{name7}: hyp_score launched "
+                                 f"{got7['hyp_score']} times for "
+                                 f"{got7['fps']} precomputations, expected "
+                                 f"{per_solve} each")
         if not bool(torch.isfinite(res7.pose).all()) or not ok:
             raise AssertionError(f"{name7}: no finite, successful pose")
         if phases7 and not (phases7["desc_time"] > 0 and phases7["pose_time"]

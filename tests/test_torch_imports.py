@@ -61,30 +61,32 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_every_kernel_is_registered():
-    """``cuda_build.build_all`` imports every kernel module: six CUDA
+    """``cuda_build.build_all`` imports every kernel module: seven CUDA
     kernels, each with its source in ``csrc/``; the five ports name the
     Pallas kernel they replace at a ``def`` line of the JAX package, the
-    conv layers' serving epilogue replaces none."""
+    conv layers' serving epilogue and the hypothesis scoring replace
+    none."""
     from bufferx_tpu_torch import cuda_build
     from bufferx_tpu_torch.geometry import spt_pallas  # noqa: F401
     from bufferx_tpu_torch.kernels import (  # noqa: F401
         conv_epilogue,
         conv_pallas,
         fps,
+        hyp_score,
         strat_pallas,
     )
 
     assert sorted(cuda_build.KERNELS) == ["cell_query", "conv_epilogue",
-                                          "conv_stack", "fps", "moments",
-                                          "strat"]
+                                          "conv_stack", "fps", "hyp_score",
+                                          "moments", "strat"]
     with open(os.path.join(ROOT, "bufferx_tpu_torch", "cuda_build.py")) as f:
         build_src = f.read()
-    for name in ("conv_epilogue", "conv_pallas", "fps", "strat_pallas",
-                 "spt_pallas"):
+    for name in ("conv_epilogue", "conv_pallas", "fps", "hyp_score",
+                 "strat_pallas", "spt_pallas"):
         assert name in build_src
     for k in cuda_build.KERNELS.values():
         assert os.path.exists(k.source_path), k.source_path
-        if k.name == "conv_epilogue":
+        if k.name in ("conv_epilogue", "hyp_score"):
             assert k.replaces is None
             continue
         path, line = k.replaces.split(":")
