@@ -939,7 +939,7 @@ def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
                            generator: torch.Generator | None = None,
                            draws: Sequence[tuple] | None = None,
                            is_aligned: bool | torch.Tensor | None = None,
-                           split: bool = False, device="cuda") -> list:
+                           device="cuda") -> list:
     """Batched serving: registers ``len(srcs)`` pairs in batches of
     ``batch_size`` with two-phase early exit. Returns one
     :class:`RegistrationResult` per pair, its tensors views of the batch's
@@ -964,13 +964,10 @@ def register_pairs_batched(cfg: Config, srcs: Sequence[Cloud],
     redo batch, the r-th redone pair of a batch takes row r of the phase-2
     draws. Without ``draws`` both sets of every batch are made from
     ``generator`` before the first launch (a host-to-device copy waits for
-    the queued work). ``split``: the JAX package can dispatch a batch as two
-    compiled programs instead of one; there is no program boundary here, and
-    both values run the same eager sequence. ``is_aligned``: None, one
-    bool for every pair, or a [len(srcs)] bool tensor, each pair's flag,
-    which follows its pair into the redo batch.
+    the queued work). ``is_aligned``: None, one bool for every pair, or a
+    [len(srcs)] bool tensor, each pair's flag, which follows its pair into
+    the redo batch.
     """
-    del split
     dev, statics, models, is_aligned = _setup(
         cfg, tuple(srcs) + tuple(tgts), params, is_aligned, device)
     statics = dataclasses.replace(statics, enable_early_exit=False)

@@ -325,21 +325,60 @@ PATH_OF = {"fps": "moments", "strat": "moments", "moments": "moments",
            "conv_epilogue": "moments", "hyp_score": "moments"}
 # launches a timing of the serving epilogue (phase 3b)
 EPILOGUE_REPS = 10
-# published H100 SXM peaks: HBM bytes/s, float32 outside the tensor
-# cores and dense bf16 on the tensor cores, flop/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-PEAK_BF16_TC_PER_S = 989e12
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_F32_PER_S):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(nbytes: float, ops: float, peak_ops: float | None = None):
+    """(ms, "bytes" | "operations"): the least time of ``nbytes`` and
+    ``ops`` on the card by ``benchmark/roofline.py`` (``peak_ops`` float32
+    outside the tensor cores when None), and which of the two sets it."""
+    from benchmark import roofline
+
+    if peak_ops is None:
+        peak_ops = roofline.PEAK_F32_PER_S
+    by_bytes = nbytes / roofline.PEAK_BYTES_PER_S >= ops / peak_ops
+    return (roofline.bound_s(nbytes, ops, peak_ops) * 1e3,
+            "bytes" if by_bytes else "operations")
+
+
+def kernel_bound(name: str, *shape, data_ops: float = 0.0):
+    """:func:`bound_ms` of one launch of kernel ``name`` at ``shape``, its
+    bytes, operations and peak from ``benchmark/counts/<name>.py``'s
+    ``launch``; ``data_ops``: operations that depend on the data, which
+    the counts leave out."""
+    import importlib
+
+    nbytes, ops, peak = importlib.import_module(
+        f"benchmark.counts.{name}").launch(*shape)
+    return bound_ms(nbytes, ops + data_ops, peak)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def time_back_to_back_ms(fn, reps: int = 5, launches: int = 10) -> float:
+    """Per launch, ``launches`` of ``fn`` between one pair of events: the
+    card works on one while the host queues the next, so the wrapper's host
+    time is hidden as long as it is the shorter."""
+    return time_ms(lambda: [fn() for _ in range(launches)], reps) / launches
 
 
 def fps_edge_cases():
@@ -368,6 +407,79 @@ def fps_edge_cases():
         case("B = 1", 30208, (24000,), 500),
         case("B = 5", 9000, (9000, 1, 4000, 8999, 100), 200),
     ]
+
+
+# K2's edge shapes: (label, clouds, centres, strips L, slots S, radii R,
+# rows of the matrix a cloud's d2 is a view of); tiles are 64 slots wide,
+# 8-byte loads need S % 4 == 0
+STRAT_EDGE_SHAPES = [
+    ("C = 1, S = 64 (one tile)", 1, 96, 32, 64, 3, 96),
+    ("C = 2, R = 1", 2, 40, 9, 128, 1, 40),
+    ("C = 5, S = 36 (ragged tile)", 5, 7, 5, 36, 2, 7),
+    ("S = 200 (full tiles and a ragged one), L = 1, R = 4", 2, 3, 1, 200, 4,
+     3),
+    ("L = 127, S = 6 (4-byte loads)", 1, 5, 127, 6, 3, 5),
+    ("L = 127, S = 256", 2, 9, 127, 256, 2, 9),
+    ("S = 130 (4-byte loads), K = 1", 2, 1, 59, 130, 3, 1),
+    ("S = 131 (odd)", 3, 4, 17, 131, 2, 4),
+    ("K = 1 of a larger matrix", 6, 1, 59, 512, 3, 4),
+    ("more blocks than units", 1, 2, 59, 512, 1, 2),
+    ("C = 3, K = 301 (a redo batch's odd sizes)", 3, 301, 59, 512, 3, 400),
+    ("C = 10, K = 1500 of 2000, R = 3", 10, 1500, 59, 512, 3, 2000),
+]
+
+
+def strat_edge_case(seed: int, c_n: int, kq: int, l: int, s: int,
+                    num_r: int, rows: int, device):
+    """Seeded K2 inputs, made on ``device``: d2 (a [C, K, N] view of a
+    [C, rows, N] matrix) with masked (1e30) and exact-radius entries, q,
+    offsets, squared radii whose hit rates leave slots with and without a
+    hit."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    d2 = rand(c_n, rows, l * s)
+    d2.masked_fill_(rand(c_n, rows, l * s) < 0.1, 1e30)
+    radii2 = torch.sort(torch.clamp_max((0.2 + 2.8 * rand(c_n, num_r)) / l,
+                                        0.6), dim=1, descending=True).values
+    d2 = torch.where(rand(c_n, rows, l * s) < 0.02, radii2[:, :1, None], d2)
+    q_t = torch.randint(0, 1 << 24, (c_n, 3, l, s), generator=gen,
+                        device=device, dtype=torch.int32)
+    off = torch.randint(0, l, (c_n, kq, s), generator=gen, device=device,
+                        dtype=torch.int32)
+    return d2[:, :kq], q_t, off, radii2.contiguous()
+
+
+def check_strat_edges() -> int:
+    """K2 bit-exact against its plain version on every edge shape; raises
+    otherwise. Returns the number of shapes."""
+    import torch
+
+    from bufferx_tpu_torch.kernels import strat_pallas
+
+    for i, (label, c_n, kq, l, s, num_r, rows) in enumerate(
+            STRAT_EDGE_SHAPES):
+        args = strat_edge_case(17 + i, c_n, kq, l, s, num_r, rows, "cuda")
+        want = strat_pallas.strat_packed_plain(*args)
+        got = strat_pallas.strat_packed_cuda(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"strat, {label}: {int((got != want).sum())} packed words "
+                "differ from the plain version")
+        log(f"strat, {label}: d2 {list(args[0].shape)} of {rows} rows, L = "
+            f"{l}, R = {num_r}: bit-exact")
+    return len(STRAT_EDGE_SHAPES)
+
+
+def strat_bound(d2, _q_t, off, radii2):
+    """K2's bound at a launch's arguments: d2 [C, K, N], offsets
+    [C, K, S], radii [C, R]."""
+    return kernel_bound("strat", *d2.shape, off.shape[2], radii2.shape[1])
 
 
 def cell_edge_cases(grid_cell_centers):
@@ -659,7 +771,6 @@ def check_gate_filter(torch, reg, models, dev, cfg, cells, kw):
     all scales under the sync-debug mode."""
     from bufferx_tpu_torch.kernels.density import density_inlier_mask
     from bufferx_tpu_torch.tools import exp_hard
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
 
     statics = reg.PipelineStatics.from_config(cfg)
     ci = len(cells) - 1
@@ -1013,7 +1124,6 @@ def k3_k4_entries(torch, normed, pmask, statics, case, paths):
     bounds. ``paths``: the launch paths of the two entries."""
     from bufferx_tpu_torch.geometry import spt_pallas
     from bufferx_tpu_torch.geometry.cylindrical import grid_cells_on
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
 
     dev = normed.device
     normed, pmask = normed.contiguous(), pmask.contiguous()
@@ -1041,8 +1151,8 @@ def k3_k4_entries(torch, normed, pmask, statics, case, paths):
         normed, pmask, cells, radius, azi).sum()) * azi
     kq, p = pmask.shape
     g = cells.shape[0]
-    cull_ops = 4.0 * float(pmask.sum()) + 6.0 * kq * p * (g // azi) \
-        + 9.0 * kept
+    # the operations that depend on the data (phase 3 says which)
+    data_ops = 4.0 * float(pmask.sum()) + 9.0 * kept
     hits = float(want[:, 9].sum())
 
     def cdist_bmm():
@@ -1061,8 +1171,8 @@ def k3_k4_entries(torch, normed, pmask, statics, case, paths):
              plain_ms=time_ms(lambda: spt_pallas.spt_moments_plain(
                  normed, pmask, cells, r2), 3),
              library_ms=time_ms(cdist_bmm, 3),
-             bound=bound_ms(kq * p * 13 + g * 12 + kq * 10 * g * 4,
-                            cull_ops + 16.0 * hits),
+             bound=kernel_bound("moments", kq, p, g, azi,
+                                data_ops=data_ops + 16.0 * hits),
              shapes=shapes + f" -> {list(got.shape)}"),
         dict(name="cell_query", case=case, path=paths[1],
              match="bit-exact", max_abs_err=0.0,
@@ -1071,8 +1181,8 @@ def k3_k4_entries(torch, normed, pmask, statics, case, paths):
              plain_ms=time_ms(lambda: spt_pallas.spt_cell_query_plain(
                  normed, pmask, cells, radius, ns), 3),
              library_ms=None,
-             bound=bound_ms(kq * p * 13 + g * 12 + got4.numel() * 4,
-                            cull_ops),
+             bound=kernel_bound("cell_query", kq, p, g, azi, ns,
+                                data_ops=data_ops),
              shapes=shapes + f" -> {list(got4.shape)}"),
     ]
     for e in entries:
@@ -1103,7 +1213,6 @@ def run_dataset_path(torch, cuda_build, reg, se3, dev):
     from bufferx_tpu_torch.tools import evaluate as tev
     from bufferx_tpu_torch.tools import exp_hard, hard_layout
     from bufferx_tpu_torch.tools import train as ttrain
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
     from bufferx_tpu_torch.tools.weights import (
         load_snapshot,
         load_snapshot_config,
@@ -1553,8 +1662,6 @@ def batch_kernel_entries(torch, reg, cfg, srcs, tgts, dev, path, case,
     from bufferx_tpu_torch.geometry.lrf import align_patches
     from bufferx_tpu_torch.kernels import fps as fps_mod
     from bufferx_tpu_torch.kernels import strat_pallas
-    from bufferx_tpu_torch.tools import bench_strat
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
 
     statics = reg.PipelineStatics.from_config(cfg)
     src8 = reg.stack_clouds(srcs)
@@ -1583,7 +1690,7 @@ def batch_kernel_entries(torch, reg, cfg, srcs, tgts, dev, path, case,
             xyz16, mask16, k), 5),
         plain_ms=time_ms(lambda: fps_mod.farthest_point_sampling_plain(
             xyz16, mask16, k), 2),
-        bound=bound_ms(b * n * 13 + b * k * 4, 9.0 * b * k * n),
+        bound=kernel_bound("fps", b, n, k),
         shapes=f"xyz {list(xyz16.shape)} -> idx [{b}, {k}]"))
 
     nf, S = statics.num_fps, statics.patch_sample
@@ -1605,8 +1712,7 @@ def batch_kernel_entries(torch, reg, cfg, srcs, tgts, dev, path, case,
         max_abs_err=0.0, library_ms=None,
         ms=time_ms(lambda: strat_pallas.strat_packed_cuda(*args), 20),
         plain_ms=time_ms(lambda: strat_pallas.strat_packed_plain(*args), 2),
-        bound=bound_ms(bench_strat.strat_bytes(*args),
-                       args[0].numel() * (2.0 + 3.0 * statics.num_scales)),
+        bound=strat_bound(*args),
         shapes=f"d2 {list(args[0].shape)}, R = {statics.num_scales} -> "
                f"packed {list(got.shape)}"))
     del got, want, args
@@ -1635,7 +1741,6 @@ def run_multiframe(torch, cuda_build, reg, se3, dev):
     from bufferx_tpu_torch.parallel import posegraph as pg
     from bufferx_tpu_torch.tools import dryrun
     from bufferx_tpu_torch.tools import exp_multiframe as mf
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
     from bufferx_tpu_torch.tools.trace_pair import _profiled
 
     t_phase = time.perf_counter()
@@ -2430,7 +2535,6 @@ def run_conv_epilogue(torch, cuda_build, reg, dev, statics, models, pre8,
 
     from bufferx_tpu_torch.kernels import conv_epilogue as ce
     from bufferx_tpu_torch.models import heads, layers, spinnet
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
 
     bf16 = torch.bfloat16
     rows, owner, case = {}, {}, {"name": None}
@@ -2483,7 +2587,7 @@ def run_conv_epilogue(torch, cuda_build, reg, dev, statics, models, pre8,
         ms = time_ms(lambda: [kernel() for _ in range(EPILOGUE_REPS)], 3) / \
             EPILOGUE_REPS
         row["layers"].append(f"{what} -> {list(got.shape)}: {ms:.4f} ms, "
-                             f"bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f}")
+                             f"bound {bound_ms(nbytes, 0.0)[0]:.4f}")
         row["ms"] += ms
         row["plain_ms"] += time_ms(plain, 3)
         row["nbytes"] += nbytes
@@ -2507,7 +2611,7 @@ def run_conv_epilogue(torch, cuda_build, reg, dev, statics, models, pre8,
                      f"{'patches' if part == 'desc' else 'matches'}",
                 match="every layer torch.equal to the plain version; " + match,
                 max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
-                bound=(row["nbytes"] / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                bound=bound_ms(row["nbytes"], 0.0),
                 library_ms=None, shapes="; ".join(row["layers"]),
                 extra=dict(layers=len(row["layers"]), bytes=row["nbytes"])))
             log(f"conv_epilogue, {entries[-1]['case']}: "
@@ -2638,7 +2742,6 @@ def run_hyp_score(torch, reg, dev, statics, models, src8, tgt8, draws8):
     from bufferx_tpu_torch.kernels import hyp_score as hs
     from bufferx_tpu_torch.solver.consensus import cross_scale_consensus
     from bufferx_tpu_torch.solver.ransac import hypotheses
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
 
     scales = tuple(range(statics.num_scales))
     with torch.no_grad():
@@ -2822,7 +2925,6 @@ def run_last_names(torch, cuda_build, reg, se3, dev, cfg, models, cloud):
     from bufferx_tpu_torch.kernels import density_aware_radius
     from bufferx_tpu_torch.kernels.fps import fps
     from bufferx_tpu_torch.models.layers import CylindricalUNet
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
     from bufferx_tpu_torch.tools.weights import UNET_MODULES, params_from_numpy
 
     t_phase = time.perf_counter()
@@ -3071,8 +3173,6 @@ def main() -> int:
     from bufferx_tpu_torch.models import layers
     from bufferx_tpu_torch.models.layers import CylindricalConvNet
     from bufferx_tpu_torch.pipeline import registration as reg
-    from bufferx_tpu_torch.tools import bench_strat
-    from bufferx_tpu_torch.tools.bench_strat import time_ms
     from bufferx_tpu_torch.tools.weights import (
         load_snapshot,
         load_snapshot_config,
@@ -3182,7 +3282,7 @@ def main() -> int:
         log(f"fps, {label}: xyz {list(e_xyz.shape)}, {e_k} rounds, indices "
             "exact")
     b, n = mask2.shape
-    bnd = bound_ms(b * n * 13 + b * k * 4, 9.0 * b * k * n)
+    bnd = kernel_bound("fps", b, n, k)
     # the design's latency floor: the same rounds with the exchange between
     # the cluster's blocks alone (no field update, no argmax)
     floor_ms = time_ms(lambda: fps_mod.fps_exchange_floor_cuda(
@@ -3217,7 +3317,7 @@ def main() -> int:
 
     # K2: one cloud (the single-cloud shape of the first design), one pair
     # (2 clouds) and the batch (16 clouds), all radii and phase 1's one
-    n_edges = bench_strat.check_edges(log)
+    n_edges = check_strat_edges()
     q16, _lo, _res = strat_pallas.quantize(xyz16, mask16)
     L = statics.max_points // S
     q_t16 = q16.reshape(2 * BATCH, L, S, 3).permute(0, 3, 1, 2).contiguous()
@@ -3252,15 +3352,13 @@ def main() -> int:
                 name="strat", case=f"{label}, R = {R}",
                 match=f"bit-exact, also on {n_edges} edge shapes",
                 max_abs_err=0.0,
-                extra=dict(ms_back_to_back=bench_strat.time_back_to_back_ms(
-                    launch)),
+                extra=dict(ms_back_to_back=time_back_to_back_ms(launch)),
                 ms=time_ms(launch, 20),
                 plain_ms=time_ms(
                     lambda args=args: strat_pallas.strat_packed_plain(*args),
                     2),
                 library_ms=None,
-                bound=bound_ms(bench_strat.strat_bytes(*args),
-                               d2.numel() * (2.0 + 3.0 * R)),
+                bound=strat_bound(*args),
                 shapes=shapes,
             ))
     del d2_16, d2, q16, q_t16, q_t, off16, off, args
@@ -3371,16 +3469,16 @@ def main() -> int:
         return torch.bmm(ok, psi).transpose(1, 2)
 
     # Operations of K3 and K4 for the bound: what the function needs on this
-    # input, not the 9 flops a pair of a brute-force walk. Per valid point its
-    # rho (4), per point and ring the 2-D test (6), per pair the cull keeps
-    # at scale 0 (these patches) the exact test (9); K3 adds 16 a hit. K4
-    # stops at a cell's 10th hit and needs fewer exact tests than are
-    # counted; bytes decide either way.
+    # input, not the 9 flops a pair of a brute-force walk. Per point and
+    # ring the 2-D test (6, in benchmark/counts/), and what depends on the
+    # data: per valid point its rho (4), per pair the cull keeps at scale 0
+    # (these patches) the exact test (9); K3 adds 16 a hit. K4 stops at a
+    # cell's 10th hit and needs fewer exact tests than are counted; bytes
+    # decide either way.
     kq, p = pmask.shape
     g = cells.shape[0]
     hits = float(want[:, 9].sum())
-    cull_ops = 4.0 * float(pmask.sum()) + 6.0 * kq * p * (g // azi) \
-        + 9.0 * kept_by_scale[0]
+    data_ops = 4.0 * float(pmask.sum()) + 9.0 * kept_by_scale[0]
     kernels.append(dict(
         name="moments",
         match="counts exact, sums within 1e-4 + 1e-5|p|, also on "
@@ -3392,8 +3490,8 @@ def main() -> int:
         plain_ms=time_ms(lambda: spt_pallas.spt_moments_plain(
             normed, pmask, cells, r2), 3),
         library_ms=time_ms(cdist_bmm, 5),
-        bound=bound_ms(kq * p * 13 + g * 12 + kq * 10 * g * 4,
-                       cull_ops + 16.0 * hits),
+        bound=kernel_bound("moments", kq, p, g, azi,
+                           data_ops=data_ops + 16.0 * hits),
         shapes=f"patches {list(normed.shape)} -> {list(got.shape)}",
     ))
 
@@ -3416,7 +3514,8 @@ def main() -> int:
         plain_ms=time_ms(lambda: spt_pallas.spt_cell_query_plain(
             normed, pmask, cells, radius, ns), 3),
         library_ms=None,
-        bound=bound_ms(kq * p * 13 + g * 12 + got.numel() * 4, cull_ops),
+        bound=kernel_bound("cell_query", kq, p, g, azi, ns,
+                           data_ops=data_ops),
         shapes=f"patches {list(normed.shape)} -> {list(got.shape)}",
     ))
 
@@ -3482,8 +3581,6 @@ def main() -> int:
         finally:
             layers._on_card = on_card
 
-    flops = 2.0 * kq * 7 * 20 * 9 * sum(
-        ci * co for ci, co in conv_pallas.CYL_LAYER_CHANNELS)
     kernels.append(dict(
         name="conv_stack",
         match="random weights: within 1e-2, mean err <= 2^-10 mean|p|; "
@@ -3500,8 +3597,7 @@ def main() -> int:
         plain_ms=time_ms(lambda: conv_pallas.cyl_conv_stack_plain(
             x5, w5, b5), 3),
         library_ms=time_ms(cudnn_stack, 5),
-        bound=bound_ms(x5.numel() * 4 + w5.numel() * 2 + b5.numel() * 4
-                       + got.numel() * 4, flops, PEAK_BF16_TC_PER_S),
+        bound=kernel_bound("conv_stack", kq),
         shapes=f"x {list(x5.shape)} -> {list(got.shape)}",
     ))
     for kr in kernels:

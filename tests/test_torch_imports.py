@@ -1,9 +1,11 @@
 """The port stands alone: no module of ``bufferx_tpu_torch/`` nor
-``chip_smoke.py`` imports JAX, flax or the JAX package, and importing the
-whole port loads none of them."""
+``chip_smoke.py`` imports JAX, flax or the JAX package (nor, inside the
+package, the benchmark), importing the whole port loads none of them, and
+the commands the documents give exist."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -11,6 +13,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "bufferx_tpu"}
+# the benchmark reads the package, never the other way round; chip_smoke.py,
+# outside the package, takes its bounds from the benchmark's counts
+ABOVE_THE_PACKAGE = {"benchmark"}
 
 
 def _port_sources():
@@ -23,6 +28,9 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_imports(path):
+    forbidden = FORBIDDEN
+    if os.path.relpath(path, ROOT).startswith("bufferx_tpu_torch"):
+        forbidden = FORBIDDEN | ABOVE_THE_PACKAGE
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
@@ -39,8 +47,30 @@ def test_no_jax_imports(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, (
+            assert name.split(".")[0] not in forbidden, (
                 f"{os.path.relpath(path, ROOT)}:{node.lineno} imports {name}")
+
+
+@pytest.mark.parametrize("doc", ["README.md",
+                                 ".claude/skills/verify/SKILL.md"])
+def test_documented_commands_exist(doc):
+    """Every ``python -m bufferx_tpu_torch.<module>`` and every
+    ``python <path>.py`` that the document gives names a module or a file
+    of the repo (the files only: nothing is imported)."""
+    with open(os.path.join(ROOT, doc)) as f:
+        text = f.read()
+    modules = re.findall(r"\bpython3?\s+-m\s+(bufferx_tpu_torch[\w.]*\w)",
+                         text)
+    scripts = re.findall(r"\bpython3?\s+([\w./-]+\.py)\b", text)
+    assert modules and scripts, doc
+    missing = []
+    for mod in modules:
+        rel = os.path.join(ROOT, *mod.split("."))
+        if not (os.path.exists(rel + ".py") or os.path.isdir(rel)):
+            missing.append(f"-m {mod}")
+    missing += [p for p in scripts
+                if not os.path.exists(os.path.join(ROOT, p))]
+    assert not missing, f"{doc} names commands that do not exist: {missing}"
 
 
 def test_importing_the_port_loads_no_jax():
