@@ -11,7 +11,10 @@ built the first time it is launched, or all at once, in parallel, by
 Every C entry point takes its pointers, sizes and the CUDA stream, launches
 on that stream, allocates nothing and returns ``cudaGetLastError()``;
 :meth:`CudaKernel.launch` raises when that is not 0 and otherwise adds one to
-the kernel's launch count.
+the kernel's launch count. That count sees the launches the host makes
+through the wrapper, and not those a replayed CUDA graph makes:
+:func:`count_launches` counts the kernels of a device trace by each
+kernel's device functions, whichever launched them.
 """
 
 from __future__ import annotations
@@ -19,13 +22,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 
 import torch
 
-__all__ = ["CudaKernel", "KERNELS", "build_all", "reset_launch_counts"]
+__all__ = ["CudaKernel", "KERNELS", "build_all", "count_launches",
+           "reset_launch_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -49,17 +54,25 @@ class CudaKernel:
     ``replaces`` names the Pallas kernel (file:line) it stands in for, or is
     None for a kernel that stands in for none;
     ``argtypes`` are the entry's ctypes argument types before the stream.
+    ``functions``: the ``__global__`` functions of which the entry launches
+    one a call (``<name>_kernel`` unless given).
     ``launches`` counts successful launches by :meth:`launch`, and nothing
     else: reset it with :func:`reset_launch_counts`.
     """
 
     def __init__(self, name: str, source: str, replaces: str | None,
-                 entry: str, argtypes: list):
+                 entry: str, argtypes: list, functions: tuple = ()):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.entry = entry
         self.argtypes = argtypes
+        self.functions = functions or (f"{name}_kernel",)
+        # a device function's name as a trace gives it, demangled: the
+        # function's, after a namespace or a space, before its template or
+        # parameter list
+        self.symbol = re.compile(
+            r"(?<![\w])(?:%s)(?=[<(])" % "|".join(self.functions))
         self.launches = 0
         self.ptxas_log = ""
         self._lib = None
@@ -159,6 +172,18 @@ def build_all() -> float:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def count_launches(kernel_names) -> dict:
+    """{kernel: launches} of every registered kernel among the device
+    kernels named ``kernel_names`` (a trace's kernel events, demangled)."""
+    counts = dict.fromkeys(KERNELS, 0)
+    for name in kernel_names:
+        for k in KERNELS.values():
+            if k.symbol.search(name):
+                counts[k.name] += 1
+                break
+    return counts
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

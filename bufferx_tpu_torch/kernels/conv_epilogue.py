@@ -56,6 +56,7 @@ CONV_EPILOGUE_KERNEL = register(CudaKernel(
     "conv_epilogue", "conv_epilogue.cu", replaces=None,
     entry="bx_conv_epilogue",
     argtypes=[_V] * 7 + [_I, _I, ctypes.c_longlong, _I, _I, _I],
+    functions=("same_kernel", "padcl_kernel", "amax_kernel", "cost_kernel"),
 ))
 
 # Eval-mode forwards of a conv layer on the card that took the eager chain

@@ -40,6 +40,13 @@ package's ``vmap`` of ``register_pair_jit``), and
 :func:`register_pairs_batched` is two-phase serving on top of that: scale 0
 for every batch, then all scales for the pairs whose scale-0 solve was not
 confident; its only host read is one transfer of the inlier counts per batch.
+Because of that, and because every shape is static, :func:`register_pair`
+on a CUDA device with prebuilt :class:`Models` and given draws records its
+chain as CUDA graphs cut at the stage spans the second time it is called
+with a key (:mod:`bufferx_tpu_torch.pipeline.replay`) and replays it on
+later calls; it counts each call as ``register.replays`` or
+``register.eager`` (:data:`REPLAYS`, :data:`EAGER`, host counters that
+count while tracing is on).
 
 Every entry point and stage opens a span
 (:func:`bufferx_tpu_torch.utils.timers.span`, which records only while
@@ -70,6 +77,7 @@ flax's initializers, for training.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import NamedTuple, Sequence
@@ -101,12 +109,13 @@ from bufferx_tpu_torch.kernels.strat_pallas import (
 )
 from bufferx_tpu_torch.models.heads import CostVolume
 from bufferx_tpu_torch.models.spinnet import MiniSpinNet
+from bufferx_tpu_torch.pipeline.replay import Replays, signature
 from bufferx_tpu_torch.solver.consensus import cross_scale_consensus
 from bufferx_tpu_torch.solver.gnc import gnc_tls_solve
 from bufferx_tpu_torch.solver.irls import post_refinement
 from bufferx_tpu_torch.solver.ransac import draw_ranks, ransac_pose
 from bufferx_tpu_torch.solver.so2 import so2_pose_candidates
-from bufferx_tpu_torch.utils.timers import span, spanned
+from bufferx_tpu_torch.utils.timers import count, span, spanned
 
 __all__ = [
     "Cloud",
@@ -828,6 +837,40 @@ def register_batch(cfg: Config, srcs: Sequence[Cloud], tgts: Sequence[Cloud],
                            tuple(range(statics.num_scales)), is_aligned)
 
 
+def _pair_chain(models: Models, statics: PipelineStatics, flags,
+                draws_type: type, *xs: torch.Tensor) -> RegistrationResult:
+    """One pair through every scale: :func:`register_batch`'s body at B = 1
+    as a function of the pair's tensors alone (what a recording takes as
+    its inputs): the source's and the target's points and masks, the
+    draws' fields, then the flag tensor when ``flags`` is one (else
+    ``flags``, a bool, holds)."""
+    n = len(draws_type._fields)
+    draws = draws_type(*xs[4:4 + n])
+    if isinstance(flags, torch.Tensor):
+        flags = xs[4 + n]
+    return _first(_register_batch(
+        models, statics, stack_clouds([Cloud(*xs[0:2])]),
+        stack_clouds([Cloud(*xs[2:4])]), stack_draws([draws]),
+        tuple(range(statics.num_scales)), flags))
+
+
+# host counters of register_pair (they count while tracing is on): calls
+# served by a replay of their recording, and calls that ran the eager chain
+# (a call that records among them)
+REPLAYS = "register.replays"
+EAGER = "register.eager"
+_PAIR_REPLAYS = Replays()
+
+
+def _recordable(dev: torch.device, params) -> bool:
+    """Whether :func:`register_pair` replays a recording of its chain: on a
+    device the recordings' segments take (a CUDA device, outside a capture
+    of the caller's own), with prebuilt serving (eval-mode)
+    :class:`Models`."""
+    return (isinstance(params, Models) and not any(m.training for m in params)
+            and _PAIR_REPLAYS.records_on(dev))
+
+
 @spanned("bufferx.register", pairs=1)
 def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
                   generator: torch.Generator | None = None,
@@ -839,15 +882,34 @@ def register_pair(cfg: Config, src: Cloud, tgt: Cloud, params, *,
     clouds' device). ``draws`` are one pair's (no leading dimension);
     otherwise they come from ``generator`` (a fresh CPU generator seeded 0
     if None). ``is_aligned``: None, a bool, or a 0-d or [1] bool tensor.
+
+    On a CUDA device, with prebuilt :class:`Models` and given ``draws``,
+    the chain is recorded as CUDA graphs (:mod:`~bufferx_tpu_torch.
+    pipeline.replay`) and later calls with the same models, statics,
+    device, kind of ``is_aligned`` (a bool's value; a tensor is an input)
+    and input shapes replay it: the same kernels on the same inputs in the
+    same order, so the same bits. The first such call runs eagerly, and
+    the second runs eagerly, then records (a key called once is never
+    recorded). Elsewhere (the CPU, state dicts, draws from a generator)
+    the chain runs eagerly.
     """
+    dev, statics, models, flags = _setup(cfg, (src, tgt), params,
+                                         is_aligned, device)
+    recorded = draws is not None and _recordable(dev, params)
     if draws is None:
-        statics = PipelineStatics.from_config(cfg)
-        draws = make_draws(statics, _default_generator(generator),
-                           resolve_device(device))
-    # register_batch's body, inside this call's span alone
-    return _first(register_batch.__wrapped__(
-        cfg, [src], [tgt], params, draws=stack_draws([draws]),
-        is_aligned=is_aligned, device=device))
+        draws = make_draws(statics, _default_generator(generator), dev)
+    inputs = (*src, *tgt, *draws) + (
+        (flags,) if isinstance(flags, torch.Tensor) else ())
+    chain = functools.partial(_pair_chain, models, statics, flags,
+                              type(draws))
+    if recorded:
+        key = (statics, dev, None if isinstance(flags, torch.Tensor) else
+               flags, type(draws), signature(inputs))
+        out, replayed = _PAIR_REPLAYS(key, models, chain, inputs)
+        count(REPLAYS if replayed else EAGER, 1)
+        return RegistrationResult(*out)
+    count(EAGER, 1)
+    return chain(*inputs)
 
 
 @spanned("bufferx.register", pairs=1)

@@ -20,17 +20,25 @@ fused conv stack. It prints:
   fence in between) and host ms, a pair (the pairs of the calls' roots);
 - from ``torch.profiler`` over one ``register_pair``: the device time per
   kernel name (top 25), the device time of every kernel, copy and fill,
-  the wall time, and the device's idle share: 1 - the union of the device
-  operations' intervals over the profiled window;
-- the serving epilogue's launches a pair (``KERNELS["conv_epilogue"]``)
-  and the conv layers' eval-mode forwards on the card that took the eager
-  chain a pair (``conv_epilogue.eager_serving_forwards``, 0 on the main
-  path), over the traced pairs; the hypothesis scoring's launches
-  (``KERNELS["hyp_score"]``: the consensus and RANSAC, one each a solve) a
-  pair and a traced call (a pair, or a batch with ``--batch``);
+  the wall time, the device's idle share (1 - the union of the device
+  operations' intervals over the profiled window), and the hand-written
+  kernels' launches;
+- the serving epilogue's launches a pair and the conv layers' eval-mode
+  forwards on the card that took the eager chain a pair
+  (``conv_epilogue.eager_serving_forwards``, 0 on the main path), over the
+  traced pairs; the hypothesis scoring's launches (the consensus and
+  RANSAC, one each a solve) a pair and a traced call (a pair, or a batch
+  with ``--batch``). The launches are the wrappers' counts
+  (``KERNELS[...]``) of the traced batches, and for single pairs, which
+  replay a recording and so launch through no wrapper, the profiled call's
+  kernels (:func:`kernel_launches`);
 - the RANSAC hypotheses scored a pair (the host counter
   ``solver.ransac.HYPOTHESES``, read with the spans), over the traced
   pairs;
+- the share of the traced ``register_pair`` calls that a replay of the
+  recorded chain served (the host counters ``registration.REPLAYS`` and
+  ``registration.EAGER``; the second warm-up call records, so every
+  traced call of the single-pair run is a replay; none with ``--batch``);
 - one JSON line with those numbers.
 
 ``--batch B`` serves ``--pairs`` batches of B pairs after the warm-up
@@ -62,7 +70,11 @@ import numpy as np
 import torch
 
 from bufferx_tpu_torch.config import make_cfg
-from bufferx_tpu_torch.cuda_build import KERNELS, reset_launch_counts
+from bufferx_tpu_torch.cuda_build import (
+    KERNELS,
+    count_launches,
+    reset_launch_counts,
+)
 from bufferx_tpu_torch.data.modelnet import synthetic_pair_full_overlap
 from bufferx_tpu_torch.kernels import conv_epilogue
 from bufferx_tpu_torch.kernels.density import density_inlier_mask
@@ -110,6 +122,20 @@ def _busy_us(ops: list, window: tuple) -> float:
     return busy
 
 
+def kernel_launches(fn) -> tuple:
+    """(``fn()``, {kernel: launches} of the hand-written kernels on the
+    card while it ran), read from a device trace: a replayed CUDA graph's
+    launches among them."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    _window, ops = _device_ops(prof)
+    return out, count_launches(n for n, _s, _d, cat in ops if cat == "kernel")
+
+
 def _profiled(fn, label: str, pairs: int) -> tuple:
     """``fn`` under the profiler: prints and returns (numbers, profile)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -144,11 +170,14 @@ def _profiled(fn, label: str, pairs: int) -> tuple:
              f"{device_ms / pairs:.2f} ms" if pairs > 1 else ""))
     for ms, count, key in rows[:25]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+    kernels = count_launches(n for n, _s, _d, cat in ops if cat == "kernel")
+    print(f"  hand-written kernels' launches: {kernels}")
     numbers = {
         "profiled_wall_ms": wall_ms, "profiled_device_ms": device_ms,
         "window_ms": window_ms, "idle_share": idle, "pairs": pairs,
         "launches": launches, "peak_memory_gb": peak_gb,
         "top_kernels_ms": {k[:90]: ms for ms, _c, k in rows[:25]},
+        "kernel_launches": kernels,
     }
     return numbers, prof
 
@@ -182,6 +211,13 @@ def _span_table(records: list) -> dict:
             row["stream_ms"] = (row["stream_ms"] or 0.0) + r.stream_ms / pairs
         row["host_ms"] += r.host_ms / pairs
     return table
+
+
+def _replay_share(counts: dict) -> float | None:
+    """Percent of the counted ``register_pair`` calls that a replay served;
+    None where none was counted."""
+    replays, eager = counts.get(reg.REPLAYS, 0), counts.get(reg.EAGER, 0)
+    return 100.0 * replays / (replays + eager) if replays + eager else None
 
 
 def _reset_counts() -> int:
@@ -256,7 +292,8 @@ def main() -> int:
             serve(batches[1:])
             torch.cuda.synchronize()
     else:
-        register(*batches[0])                                  # warm-up
+        for _ in range(2):            # warm-up: eager, then the recording
+            register(*batches[0])
         counts = _reset_counts()
         with tracing():
             for batch in batches[1:]:
@@ -264,14 +301,18 @@ def main() -> int:
                 torch.cuda.synchronize()
     traced_pairs = args.pairs * size
     unit = f"batch of {size}" if args.batch else "pair"
+    records = spans()            # the traced calls' (and their counters)
+    if args.batch:
+        per_call = {n: k.launches / args.pairs for n, k in KERNELS.items()}
+    else:
+        _out, per_call = kernel_launches(lambda: register(*batches[1]))
     epilogue = {"conv_epilogue_launches_per_pair":
-                KERNELS["conv_epilogue"].launches / traced_pairs,
+                per_call["conv_epilogue"] / size,
                 "eager_served_per_pair":
                 (conv_epilogue.eager_serving_forwards - counts) / traced_pairs,
                 "hyp_score_launches_per_pair":
-                KERNELS["hyp_score"].launches / traced_pairs,
-                "hyp_score_launches_per_call":
-                KERNELS["hyp_score"].launches / args.pairs}
+                per_call["hyp_score"] / size,
+                "hyp_score_launches_per_call": per_call["hyp_score"]}
     print(f"conv epilogue: {epilogue['conv_epilogue_launches_per_pair']:g} "
           f"launches a pair, {epilogue['eager_served_per_pair']:g} conv "
           "forwards a pair served by the eager chain", flush=True)
@@ -279,11 +320,13 @@ def main() -> int:
           f"{epilogue['hyp_score_launches_per_pair']:g} launches a pair, "
           f"{epilogue['hyp_score_launches_per_call']:g} a {unit}",
           flush=True)
-    records = spans()
     epilogue["ransac_hypotheses_per_pair"] = (
         counters().get(HYPOTHESES, 0) / traced_pairs)
     print(f"ransac: {epilogue['ransac_hypotheses_per_pair']:g} hypotheses "
           "scored a pair", flush=True)
+    epilogue["graph_replay_share"] = _replay_share(counters())
+    print(f"graph replays: {epilogue['graph_replay_share']} % of the traced "
+          "register_pair calls", flush=True)
     tree = _span_tree(records)
     def ms(x):
         return "-" if x is None else f"{x:.2f} ms"

@@ -25,6 +25,13 @@ call of a function in a span.
 each read of :func:`spans` takes the counters' totals and zeroes them, and
 :func:`counters` gives the totals of that read, so that a reader sees the
 counts of the same calls as the spans.
+
+:func:`recording` hands the spans and counters that a block opens and
+counts in its own thread to a recorder in their place
+(:mod:`bufferx_tpu_torch.pipeline.replay` cuts a chain of device work into
+CUDA graphs at the spans' ends and replays the spans and counts it saw);
+other threads trace as they would without it. With nothing recording and
+tracing off, a span costs one flag check.
 """
 
 from __future__ import annotations
@@ -40,8 +47,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["Timer", "AverageMeter", "DeviceTimer", "SPAN_CAPACITY",
-           "SpanRecord", "count", "counters", "span", "spanned", "spans",
-           "tracing"]
+           "SpanRecord", "count", "counters", "recording", "span", "spanned",
+           "spans", "tracing"]
 
 # the most closed spans the store holds between two reads of spans()
 SPAN_CAPACITY = 8192
@@ -163,10 +170,14 @@ class _Tracer:
     """The process's tracing state: how many :func:`tracing` blocks are
     open, each thread's stack of open spans, the store of closed ones, the
     CUDA event pairs that :func:`spans` has read, to be recorded again,
-    and the counters since and as of its last read."""
+    the counters since and as of its last read. ``forced`` counts the open
+    :func:`tracing` blocks and :func:`recording` blocks, ``tracing`` the
+    former alone; each thread's recorder (:func:`recording`) is in
+    ``local``."""
 
     def __init__(self):
         self.forced = 0
+        self.tracing = 0
         self.local = threading.local()
         self.store: collections.deque = collections.deque(
             maxlen=SPAN_CAPACITY)
@@ -226,6 +237,19 @@ def _on() -> bool:
     return bool(_TRACER.forced or torch.autograd._profiler_enabled())
 
 
+def _tracing() -> bool:
+    return bool(_TRACER.tracing or torch.autograd._profiler_enabled())
+
+
+def _open(name: str, pairs: int | None, stream: bool):
+    """The span where :func:`_on` holds: this thread's recorder's, else a
+    recorded one while tracing is on, else none."""
+    rec = getattr(_TRACER.local, "recorder", None)
+    if rec is not None:
+        return rec.span(name, pairs, stream)
+    return _Span(name, pairs, stream) if _tracing() else _OFF
+
+
 def span(name: str, pairs: int | None = None, stream: bool = False):
     """A context manager around one stage of the program, named ``name``;
     ``pairs``: the pairs the stage works on; ``stream``: also time the
@@ -235,7 +259,7 @@ def span(name: str, pairs: int | None = None, stream: bool = False):
     is its child, and shares its root."""
     if not _on():
         return _OFF
-    return _Span(name, pairs, stream)
+    return _open(name, pairs, stream)
 
 
 def spanned(name: str, pairs=None, stream: bool = False):
@@ -248,7 +272,7 @@ def spanned(name: str, pairs=None, stream: bool = False):
             if not _on():
                 return fn(*args, **kwargs)
             n = pairs(*args, **kwargs) if callable(pairs) else pairs
-            with _Span(name, n, stream):
+            with _open(name, n, stream):
                 return fn(*args, **kwargs)
         return inner
     return wrap
@@ -258,7 +282,11 @@ def count(name: str, n: int) -> None:
     """Add ``n`` to the host counter ``name`` while tracing is on (see the
     module's docstring); otherwise nothing."""
     if _on():
-        _TRACER.counts[name] += n
+        rec = getattr(_TRACER.local, "recorder", None)
+        if rec is not None:
+            rec.counts[name] += n
+        elif _tracing():
+            _TRACER.counts[name] += n
 
 
 def counters() -> dict:
@@ -271,10 +299,30 @@ def counters() -> dict:
 def tracing():
     """Tracing on for the block, with or without a profiler."""
     _TRACER.forced += 1
+    _TRACER.tracing += 1
     try:
         yield
     finally:
+        _TRACER.tracing -= 1
         _TRACER.forced -= 1
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Inside the block, every span this thread opens and every count it
+    adds goes to ``recorder`` and not to the store, whether or not tracing
+    is on: ``recorder.span(name, pairs, stream)`` gives the context manager
+    a span enters, and ``recorder.counts`` (a ``collections.Counter``) takes
+    the counts."""
+    if getattr(_TRACER.local, "recorder", None) is not None:
+        raise RuntimeError("a recording is already open in this thread")
+    _TRACER.local.recorder = recorder
+    _TRACER.forced += 1
+    try:
+        yield recorder
+    finally:
+        _TRACER.forced -= 1
+        _TRACER.local.recorder = None
 
 
 def spans() -> list:

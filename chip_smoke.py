@@ -59,13 +59,19 @@ Phases (any failure raises and exits non-zero):
    mask leave; every distance of 256 hypotheses equal to the eager chain's
    (the kernel's rounding order); every phase that registers pairs holds
    its launches to a consensus and a RANSAC scoring a solve (a consensus
-   alone with GNC), one solve a precomputation;
+   alone with GNC), one solve a precomputation. Where ``register_pair``
+   may replay a recording of its chain (phases 4, 4b, 11 and 13), the
+   launches are read from a device trace of the calls
+   (``tools/trace_pair.py:kernel_launches``), since a replayed kernel
+   goes through no wrapper's count;
 4. the main path: ``register_pair`` with the ``hard_moments_r4ft2`` weights
    ("moments" descriptor) at full width (30208 points, 1500 keypoints, 2000
    probes, 512-point patches, 3 scales, 8192 hypotheses) on 4 seeded
-   full-overlap pairs after one warm-up; per-pair ms, RTE/RRE/success
-   against ModelNet40's thresholds; launch counts read around exactly
-   these 4 registrations;
+   full-overlap pairs after two warm-up calls (the first runs eagerly, the
+   second records the chain as CUDA graphs); every pair served by a
+   replay, per-pair ms, RTE/RRE/success against ModelNet40's thresholds;
+   each pair's kernels read from a device trace of a second replay of it
+   (the same pose), none launched through a wrapper;
 4b. the sampled path: the same with the ``hard`` weights (the reference
    "sampled" descriptor, 10 samples per cell) and ``fused_conv``;
 5. the card path against the CPU path (plain versions) end to end on a
@@ -545,29 +551,62 @@ def cell_edge_cases(grid_cell_centers):
 
 def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs,
              poses=None):
-    """One warm-up, then ``register_pair`` on every pair with the launch
-    counts set to 0 just before and read just after; asserts the launches
-    per pair, finite poses and the success count. Returns the counts, and
-    appends each pose to ``poses`` when given."""
+    """Two warm-up calls (the first runs eagerly, the second records the
+    chain), then ``register_pair`` on every pair, each with its own draws:
+    timed under ``tracing()``, then once more under the profiler. Asserts
+    that a replay of the recording served every call, that the replayed
+    pair ran on the card the kernels one pair launches (read from the
+    device trace) and gave the timed call's pose, that no kernel went
+    through a wrapper, finite poses and the success count. Returns the
+    kernels' launches over the profiled calls, and appends each pose to
+    ``poses`` when given."""
+    from bufferx_tpu_torch.tools.trace_pair import kernel_launches
+    from bufferx_tpu_torch.utils.timers import counters, spans, tracing
+
     gen = torch.Generator()
     dev = pairs[0][2].device
-    reg.register_pair(cfg, pairs[0][0], pairs[0][1], models,
-                      generator=gen.manual_seed(100), device=dev)
+    statics = reg.PipelineStatics.from_config(cfg)
+    for seed in (100, 101):
+        reg.register_pair(cfg, pairs[0][0], pairs[0][1], models,
+                          draws=reg.make_draws(statics, gen.manual_seed(seed),
+                                               dev), device=dev)
     torch.cuda.synchronize()
     cuda_build.reset_launch_counts()
     per_pair = []
+    launches = dict.fromkeys(cuda_build.KERNELS, 0)
     for i, (src, tgt, T) in enumerate(pairs):
-        before = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
+        draws = reg.make_draws(statics, gen.manual_seed(i), dev)
+
+        def call():
+            with tracing():
+                return reg.register_pair(cfg, src, tgt, models, draws=draws,
+                                         device=dev)
+
+        torch.cuda.synchronize()
+        spans()
         t0 = time.perf_counter()
-        res = reg.register_pair(cfg, src, tgt, models,
-                                generator=gen.manual_seed(i), device=dev)
+        res = call()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        again, ran = kernel_launches(call)
+        spans()
+        got = counters()
+        if got.get(reg.REPLAYS) != 2 or reg.EAGER in got:
+            raise AssertionError(f"{name} pair {i}: not served by a replay "
+                                 f"of the recorded chain: {got}")
         for kname, want_n in EXPECTED_PER_PAIR[name].items():
-            got_n = cuda_build.KERNELS[kname].launches - before[kname]
-            if got_n != want_n:
-                raise AssertionError(f"{name} pair {i}: {kname} launched "
-                                     f"{got_n} times, expected {want_n}")
+            if ran[kname] != want_n:
+                raise AssertionError(f"{name} pair {i}: {kname} ran "
+                                     f"{ran[kname]} times on the card, "
+                                     f"expected {want_n}")
+        wrapped = {n: kk.launches for n, kk in cuda_build.KERNELS.items()
+                   if kk.launches}
+        if wrapped or not torch.equal(again.pose, res.pose):
+            raise AssertionError(f"{name} pair {i}: a replay launched "
+                                 f"{wrapped} through the wrappers, or gave "
+                                 "another pose")
+        for kname, n in ran.items():
+            launches[kname] += n
         pose = res.pose
         if poses is not None:
             poses.append(pose.clone())
@@ -581,7 +620,6 @@ def run_path(torch, reg, se3, cuda_build, name, cfg, models, pairs,
         log(f"{name} pair {i}: {ms:.1f} ms, RTE {rte:.4f} m, RRE {rre:.3f} "
             f"deg, success {ok}, inliers {int(res.num_inliers)}, mutual "
             f"{int(res.num_mutual)}")
-    launches = {n: kk.launches for n, kk in cuda_build.KERNELS.items()}
     successes = sum(p["success"] for p in per_pair)
     log(f"{name} path: {successes}/{len(pairs)} successes, median "
         f"{float(np.median([p['ms'] for p in per_pair])):.1f} ms/pair, "
@@ -1213,6 +1251,7 @@ def run_dataset_path(torch, cuda_build, reg, se3, dev):
     from bufferx_tpu_torch.tools import evaluate as tev
     from bufferx_tpu_torch.tools import exp_hard, hard_layout
     from bufferx_tpu_torch.tools import train as ttrain
+    from bufferx_tpu_torch.tools.trace_pair import kernel_launches
     from bufferx_tpu_torch.tools.weights import (
         load_snapshot,
         load_snapshot_config,
@@ -1253,16 +1292,13 @@ def run_dataset_path(torch, cuda_build, reg, se3, dev):
                 JAX_DATASET_SAMPLED_SUCCESSES[p])
         cli = {}
         for label, (snap, flags, want, jax_count) in runs.items():
-            cuda_build.reset_launch_counts()
-            torch.cuda.synchronize()
+            argv = ["--dataset", "3DMatch", "--root", root,
+                    "--checkpoint-dir", snap, "--out-dir", out_dir,
+                    "--experiment-id", label] + flags
             t0 = time.perf_counter()
-            summary = tev.run(["--dataset", "3DMatch", "--root", root,
-                               "--checkpoint-dir", snap, "--out-dir",
-                               out_dir, "--experiment-id", label] + flags,
-                              log=lambda *_: None)
-            torch.cuda.synchronize()
+            summary, got = kernel_launches(
+                lambda: tev.run(argv, log=lambda *_: None))
             seconds = time.perf_counter() - t0
-            got = {k: kk.launches for k, kk in cuda_build.KERNELS.items()}
             launches[f"dataset_{label}"] = got
             want = with_derived(dict({k: 0 for k in got}, **want))
             successes = sum(r["success"] for r in summary["rows"])
@@ -2202,6 +2238,7 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
     from bufferx_tpu_torch.tools import evaluate as tev
     from bufferx_tpu_torch.tools import import_reference_checkpoint as imp
     from bufferx_tpu_torch.tools import scannetpp, tsdf
+    from bufferx_tpu_torch.tools.trace_pair import kernel_launches
     from bufferx_tpu_torch.tools.weights import (
         load_snapshot,
         load_snapshot_config,
@@ -2348,16 +2385,13 @@ def run_offline_tools(torch, cuda_build, reg, se3, dev, cfg_s, pairs,
         cli = {}
         for label, data_root in (("as_written", iphone_root),
                                  ("jax_direction", inv_root)):
-            cuda_build.reset_launch_counts()
-            torch.cuda.synchronize()
+            argv = ["--dataset", "Scannetpp_iphone", "--root", data_root,
+                    "--checkpoint-dir", SNAPSHOT, "--out-dir", out_dir,
+                    "--experiment-id", f"iphone_{label}"]
             t0 = time.perf_counter()
-            summary = tev.run(["--dataset", "Scannetpp_iphone", "--root",
-                               data_root, "--checkpoint-dir", SNAPSHOT,
-                               "--out-dir", out_dir, "--experiment-id",
-                               f"iphone_{label}"], log=lambda *_: None)
-            torch.cuda.synchronize()
+            summary, got = kernel_launches(
+                lambda: tev.run(argv, log=lambda *_: None))
             seconds = time.perf_counter() - t0
-            got = {kk: kr.launches for kk, kr in cuda_build.KERNELS.items()}
             launches[f"iphone_{label}"] = got
             want = with_derived(dict({kk: 0 for kk in got}, fps=n, strat=n,
                                       moments=3 * n))

@@ -51,6 +51,7 @@ def world():
     reuses them), the threshold at which batch 0 alone redoes pairs (the
     scale-0 inliers of batch 1's pair: batch 0's weaker pairs fall below
     it), and the results with tracing off."""
+    spans()       # what another file's traced or profiled calls left stored
     cfg = make_cfg("ModelNet40").override(**SMALL)
     statics = treg.PipelineStatics.from_config(cfg)
     models = treg.build_models(statics, load_snapshot(SNAP), "cpu")
