@@ -1,7 +1,8 @@
-"""Whether what the window served is correct: the plain reference
-(``benchmark/reference/``) registers a sample of the window's pairs again
-from the same raw clouds and draws, and each served pair is held against
-it.
+"""Whether what the window served is correct: the configuration's plain
+reference (``benchmark/reference/<name>.py``, the configuration file's
+``"reference"``, ``registration`` where it names none) registers a sample
+of the window's pairs again from the same raw clouds and draws, and each
+served pair is held against it.
 
 For a checked pair the gaps are the rotation angle between the served and
 the reference pose (degrees), the distance between their translations (m)
@@ -27,10 +28,17 @@ import os
 import numpy as np
 import torch
 
-from benchmark.reference import registration as ref
+from benchmark.harness import BENCH, load_module
 from benchmark.reference.weights import load_snapshot
 
-__all__ = ["pair_gaps", "numbers", "judge", "reference_records"]
+__all__ = ["pair_gaps", "numbers", "judge", "load_reference",
+           "reference_records"]
+
+# the reference of a configuration file that names none, and what every
+# reference module offers (``benchmark/reference/__init__.py``)
+DEFAULT_REFERENCE = "registration"
+INTERFACE = ("Statics", "Cloud", "Draws", "Result", "build_models",
+             "prepare_cloud", "register_batch", "register_batches")
 
 
 def rotation_gap_deg(a: np.ndarray, b: np.ndarray) -> float:
@@ -100,13 +108,33 @@ def _host(res) -> dict:
                 scales_used=int(res.scales_used), valid=bool(res.valid))
 
 
-def reference_records(root: str, config: dict, pool: list, groups: list,
-                      device, tf32: bool = False) -> list:
-    """The reference's result (a dict of Record fields) for every pair of
-    ``groups`` [(kind, pair indices, (strat_src, strat_tgt, ransac) draws
-    or a (phase-1, phase-2) pair of them, records)], in order. ``tf32``
-    runs it with TF32 on (the control)."""
-    s = ref.Statics.from_dict(config["statics"])
+def load_reference(config: dict, bench: str = BENCH) -> tuple:
+    """(module, statics): the configuration's plain reference, loaded from
+    ``<bench>/reference/<name>.py``, and the configuration's statics as it
+    takes them. A module that lacks part of the interface, or a statics
+    the reference does not implement, raises here, with the reference's
+    own message and the module's file."""
+    mod = load_module("reference",
+                      config.get("reference", DEFAULT_REFERENCE), bench)
+    missing = [name for name in INTERFACE if not hasattr(mod, name)]
+    if missing:
+        raise AttributeError(f"the reference {mod.__file__} lacks {missing}")
+    try:
+        statics = mod.Statics.from_dict(config["statics"])
+    except (ValueError, NotImplementedError) as e:
+        raise ValueError(f"the reference {mod.__file__} does not take "
+                         f"configuration {config['name']!r}: {e}") from e
+    return mod, statics
+
+
+def reference_records(root: str, bench: str, config: dict, pool: list,
+                      groups: list, device, tf32: bool = False) -> list:
+    """The configuration's reference's result (a dict of Record fields) for
+    every pair of ``groups`` [(kind, pair indices, (strat_src, strat_tgt,
+    ransac) draws or a (phase-1, phase-2) pair of them, records)], in
+    order. ``root`` holds the snapshots, ``bench`` the reference modules.
+    ``tf32`` runs it with TF32 on (the control)."""
+    ref, s = load_reference(config, bench)
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -64,6 +64,7 @@ def main(argv=None, bench: str = BENCH, root: str = ROOT) -> int:
     _w, config, traffic = find_cell(spec, args.workload, bench)
     rules = load_json(os.path.join(bench, "checks", args.workload + ".json"))
     cfg = program_config(config)
+    check.load_reference(config, bench)
     if dev.type == "cuda":
         cuda_build.build_all()
     models = reg.build_models(reg.PipelineStatics.from_config(cfg),
@@ -81,12 +82,13 @@ def main(argv=None, bench: str = BENCH, root: str = ROOT) -> int:
         for _ in range(args.calls):
             records += entry.call()
         groups = entry.check_groups(records)
-        refs = check.reference_records(root, config, pool, groups, dev)
+        refs = check.reference_records(root, bench, config, pool, groups,
+                                       dev)
         served = [r for g in groups for r in g[3]]
         sides = [("program", served)]
         if args.control:
-            low = check.reference_records(root, config, pool, groups, dev,
-                                          tf32=True)
+            low = check.reference_records(root, bench, config, pool, groups,
+                                          dev, tf32=True)
             sides.append(("control", as_records(groups, low)))
         for side, got in sides:
             gaps = [check.pair_gaps(s, r) for s, r in zip(got, refs)]

@@ -5,7 +5,12 @@ metric, a kernel's count or a cell's check lives in a file of its own that
 the harness finds by name:
 
 - ``configs/<config>.json``: the program's preset, the snapshot, the
-  overrides, and the statics the program must derive from them;
+  overrides, the statics the program must derive from them, and the name
+  of the check's plain reference (``"reference"``, ``registration`` where
+  the file names none);
+- ``reference/<name>.py``: the plain reference the check holds the
+  configuration's served pairs against (its interface:
+  ``benchmark/reference/__init__.py``);
 - ``traffic/<traffic>.json``: a generator and its parameters, the entry and
   its parameters, the success thresholds;
 - ``generators/<generator>.py``: ``pairs(seed, params)``;
@@ -15,7 +20,8 @@ the harness finds by name:
 - ``counts/<kernel>.py``: ``KERNEL`` and ``launches(statics, passes)``;
 - ``checks/<workload>.json``: the limits of the check's numbers.
 
-A run: set-up (kernels built or loaded, snapshot, pool, warm-up),
+A run: set-up (the configuration taken by the program and by its
+reference, kernels built or loaded, snapshot, pool, warm-up),
 then the window of ``--seconds``, closed-loop entry calls back to back,
 with ``--trace 1`` the first ``trace_calls`` of them under the profiler,
 then the check against the reference, then the result line.
@@ -50,7 +56,7 @@ def load_module(kind: str, name: str, bench: str = BENCH):
     """``<bench>/<kind>/<name>.py`` as a module (the name may hold dots)."""
     path = os.path.join(bench, kind, name + ".py")
     if not os.path.isfile(path):
-        raise FileNotFoundError(f"no {kind[:-1]} {name!r}: {path}")
+        raise FileNotFoundError(f"no file {kind}/{name}.py: {path}")
     key = f"benchmark.{kind}._{name.replace('.', '_')}"
     spec = importlib.util.spec_from_file_location(key, path)
     mod = importlib.util.module_from_spec(spec)
@@ -205,6 +211,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if program_hook is not None:
         program_hook(reg)
     cfg = program_config(config)
+    check.load_reference(config, bench)
     statics = config["statics"]
     if device.type == "cuda":
         built = cuda_build.build_all()
@@ -279,7 +286,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    refs = check.reference_records(root, config, pool, groups, device)
+    refs = check.reference_records(root, bench, config, pool, groups,
+                                   device)
     served = [r for g in groups for r in g[3]]
     gaps = [check.pair_gaps(s, r) for s, r in zip(served, refs)]
     rules = load_json(os.path.join(bench, "checks", workload + ".json"))

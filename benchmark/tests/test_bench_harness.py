@@ -1,5 +1,6 @@
-"""The harness on the CPU: the result line, discovery by file name, the
-contract of BENCHMARK.json, the kernel counts and the import guard.
+"""The harness on the CPU: the result line, discovery by file name (the
+check's reference too), the contract of BENCHMARK.json, the kernel counts
+and the import guard.
 
 Run with ``python -m pytest benchmark/tests -q`` from the repository root;
 the tests marked ``chip`` need the card and skip without one.
@@ -16,16 +17,21 @@ import time
 
 import pytest
 
+from benchmark import check
 from benchmark.harness import (
     BENCH,
     FORBIDDEN,
     ROOT,
+    Env,
     count_modules,
+    find_cell,
+    load_module,
     metrics_for,
+    program_config,
     run_cell,
 )
 from benchmark.roofline import bound_s
-from benchmark.tests.conftest import tiny_copy, write_json
+from benchmark.tests.conftest import tiny_copy, tiny_statics, write_json
 
 SEED = 2 ** 31 + 11
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -111,6 +117,116 @@ def test_new_config_traffic_metric_and_count_by_file_name(tmp_path):
     assert result["metrics"]["stub_metric"]["value"] == 44.0
     assert result["attempted"] == 2
     assert "stub_kernel" in count_modules(bench)
+    assert result["correct"] is True
+    # the configuration names a reference of its own, which serves every
+    # pair's mutual matches doubled: the check holds the run against it
+    with open(os.path.join(bench, "reference", "stub_ref.py"), "w") as f:
+        f.write(STUB_REFERENCE)
+    write_json(os.path.join(bench, "configs", "stub_config.json"),
+               dict(cfg, name="stub_config", reference="stub_ref"))
+    result, _ = run_cell("stub.cell", SEED, 0.01, False, time.perf_counter(),
+                         bench=bench, root=root, need_cuda=False)
+    assert result["correct"] is False
+    assert result["check"]["mutual_gap.median"]["value"] > 0.025
+
+
+STUB_REFERENCE = """\
+from benchmark.reference import registration as _base
+from benchmark.reference.registration import (  # noqa: F401
+    Cloud, Draws, Result, Statics, build_models, prepare_cloud)
+
+
+def _doubled(res):
+    return res._replace(num_mutual=res.num_mutual * 2)
+
+
+def register_batch(*args, **kwargs):
+    return _doubled(_base.register_batch(*args, **kwargs))
+
+
+def register_batches(*args, **kwargs):
+    return [_doubled(r) for r in _base.register_batches(*args, **kwargs)]
+"""
+
+
+def _boom_generator(bench: str) -> None:
+    """The tiny traffic's generator replaced by one that raises: a run that
+    reaches its pool fails with "pool made"."""
+    with open(os.path.join(bench, "generators", "boom.py"), "w") as f:
+        f.write("def pairs(seed, params):\n"
+                "    raise RuntimeError('pool made')\n")
+    path = os.path.join(bench, "traffic", "tiny.json")
+    write_json(path, dict(json.load(open(path)), generator="boom"))
+
+
+@pytest.mark.parametrize("case", ["missing", "refused"])
+def test_a_reference_that_cannot_check_the_configuration_stops_set_up(
+        tmp_path, case):
+    """A configuration that names a missing reference, or whose reference
+    refuses its statics, fails at set-up with the reference's message and
+    its path, before the pool and the window."""
+    bench, root = tiny_copy(tmp_path)
+    _boom_generator(bench)
+    path = os.path.join(bench, "configs", "tiny_moments.json")
+    cfg = json.load(open(path))
+    if case == "missing":
+        cfg["reference"] = "no_such_ref"
+        want = (FileNotFoundError, re.escape(os.path.join(
+            bench, "reference", "no_such_ref.py")))
+    else:
+        # the program's GNC-TLS solver, which ``registration`` refuses
+        cfg["overrides"] = dict(cfg["overrides"],
+                                match={"pose_estimator": "gnc"})
+        cfg["statics"] = tiny_statics(cfg["preset"], cfg["overrides"])
+        want = (ValueError, re.escape(os.path.join(
+            bench, "reference", "registration.py")) +
+            ".*the reference runs the RANSAC solver")
+    write_json(path, cfg)
+    with pytest.raises(want[0], match=want[1]):
+        run_cell("tiny.cell", SEED, 0.01, False, time.perf_counter(),
+                 bench=bench, root=root, need_cuda=False)
+
+
+def test_reference_by_name_equals_the_package_import(tmp_path, monkeypatch):
+    """The tiny cell's reference records, loaded by the configuration's
+    name from the copy, equal field for field those of
+    ``benchmark.reference.registration`` imported as a package."""
+    import numpy as np
+    import torch
+
+    from benchmark.reference import registration as package
+
+    from bufferx_tpu_torch.pipeline import registration as reg
+    from bufferx_tpu_torch.tools.weights import load_snapshot
+
+    bench, root = tiny_copy(tmp_path)
+    spec = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    _w, config, traffic = find_cell(spec, "tiny.cell", bench)
+    assert "reference" not in config
+    cfg = program_config(config)
+    cpu = torch.device("cpu")
+    models = reg.build_models(reg.PipelineStatics.from_config(cfg),
+                              load_snapshot(os.path.join(
+                                  root, config["snapshot"])), cpu)
+    pool = load_module("generators", traffic["generator"], bench).pairs(
+        SEED, traffic["params"])
+    env = Env(reg, cfg, models, config["statics"], traffic, pool, SEED,
+              cpu, False)
+    entry = load_module("entries", traffic["entry"], bench).Entry(env)
+    groups = entry.check_groups(entry.call())
+    mod, _statics = check.load_reference(config, bench)
+    assert mod.__file__ == os.path.join(bench, "reference",
+                                        "registration.py")
+    by_name = check.reference_records(root, bench, config, pool, groups, cpu)
+    monkeypatch.setattr(check, "load_reference", lambda config, bench: (
+        package, package.Statics.from_dict(config["statics"])))
+    by_package = check.reference_records(root, bench, config, pool, groups,
+                                         cpu)
+    assert len(by_name) == len(by_package) == 4
+    for a, b in zip(by_name, by_package):
+        assert list(a) == list(b)
+        np.testing.assert_array_equal(a.pop("pose"), b.pop("pose"))
+        assert a == b
 
 
 def test_benchmark_json_keeps_to_the_contract():
@@ -128,6 +244,10 @@ def test_benchmark_json_keeps_to_the_contract():
         assert c["file"].startswith("benchmark/")
         cfg = json.load(open(os.path.join(ROOT, c["file"])))
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
+        reference = cfg.get("reference", check.DEFAULT_REFERENCE)
+        assert NAME.match(reference)
+        assert os.path.isfile(os.path.join(BENCH, "reference",
+                                           reference + ".py"))
         names.add(c["name"])
     cells = set()
     for w in s["workloads"]:
@@ -218,7 +338,20 @@ def test_nothing_the_benchmark_runs_loads_jax_or_the_jax_package():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    tops = _loaded_tops("import benchmark.reference.registration\n"
-                        "import benchmark.reference.weights\n"
-                        "import benchmark.check\n")
+    """Every module file under ``benchmark/reference/``, imported as a
+    package module, every configuration's reference loaded by name, and
+    the check, load neither JAX nor the program."""
+    folder = os.path.join(BENCH, "reference")
+    mods = sorted(
+        "benchmark." + os.path.relpath(os.path.join(d, f[:-3]), BENCH)
+        .replace(os.sep, ".").removesuffix(".__init__")
+        for d, _dirs, files in os.walk(folder) for f in files
+        if f.endswith(".py"))
+    assert "benchmark.reference.registration" in mods
+    configs = [c["file"] for c in spec()["configs"]]
+    tops = _loaded_tops(
+        "".join(f"import {m}\n" for m in mods)
+        + "import json\nfrom benchmark import check\n"
+        + "".join(f"check.load_reference(json.load(open({f!r})))\n"
+                  for f in configs))
     assert not tops & (set(FORBIDDEN) | {"bufferx_tpu_torch"})

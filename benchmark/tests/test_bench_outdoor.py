@@ -192,8 +192,14 @@ def test_the_configuration_file_is_the_programs():
     for name in ("stage_ms.ransac", "ransac_hypotheses_per_pair"):
         assert per_layer[name]["workloads"] == cells
         assert per_layer[name]["layer"] == "pose solver"
+    # the batched cells' shared per-layer metrics list the cell too; the
+    # online cell's and the gate's own ones do not
     assert {m["name"] for m in metrics_for(spec, CELL, True)} == {
-        "stage_ms.ransac", "ransac_hypotheses_per_pair"}
+        "stage_ms.ransac", "ransac_hypotheses_per_pair", "redo_share",
+        "launches_per_pair", "kernel_roofline_share", "step_mfu",
+        "device_idle_share", "stage_ms.precompute", "stage_ms.candidates",
+        "stage_ms.describe", "stage_ms.solve", "idle_share.ingest",
+        "idle_share.dispatch", "host_syncs_per_pair"}
 
 
 def test_the_counts_are_k1_to_k5():
